@@ -1,18 +1,21 @@
-"""Carry a compiled model's quantized arrays into the port.
+"""Carry a reference model's arrays into the port.
 
 ``emitted_model_from_arrays`` turns per-layer numpy arrays (the state of a
 reference ``EmittedModel``: padded quantized weights, int32 biases, SRS
 shifts, ...) into a port :class:`EmittedModel` on a given device, without
-running the passes. The port's execution can then be held against the
-reference's on identical weights, independently of the port's passes.
+running the passes. ``decoder_lm_from_arrays`` turns the reference's
+decoder-LM parameter tree, as numpy arrays, into a port ``DecoderLM``. The
+port's execution can then be held against the reference's on identical
+weights.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Optional, Sequence
+from typing import Any, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.core.emit import DeviceLike, EmittedModel, LayerExec, resolve_device
 from repro_torch.quant.srs import INT_RANGE, VALID_ROUNDING
@@ -73,3 +76,65 @@ def emitted_model_from_arrays(
         [_layer(spec, dev) for spec in layers], dev,
         in_shift=int(in_shift), in_dtype=in_dtype, out_shift=int(out_shift),
     )
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for key, val in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(val, Mapping):
+            out.update(_flatten(val, path + "."))
+        else:
+            out[path] = val
+    return out
+
+
+def _to_tensor(arr, device: torch.device) -> torch.Tensor:
+    """A numpy array as a tensor of the same dtype; bfloat16 arrays (numpy
+    has no such type of its own) are carried bit for bit."""
+    arr = np.array(arr, order="C")      # a private, writable copy
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
+    return t.to(device)
+
+
+def decoder_lm_from_arrays(cfg, params: Mapping[str, Any],
+                           device: DeviceLike = None):
+    """A port ``DecoderLM`` holding the reference's parameters.
+
+    ``params`` is the reference's tree as numpy arrays:
+    ``{"embed": {"table"}, "blocks": {...}, "ln_f": {"scale"},
+    "head": {"w"}}`` with every ``blocks`` leaf stacked ``[L, ...]``.
+    Block ``l`` takes slice ``l`` of every stacked leaf; every parameter
+    keeps its leaf's dtype. Raises on a missing, extra or misshapen leaf.
+    """
+    from repro_torch.models.lm import DecoderLM
+
+    dev = resolve_device(device)
+    model = DecoderLM(cfg, device="meta")
+    want = dict(model.named_parameters())
+    got: Dict[str, Any] = {}
+    for path, arr in _flatten(params).items():
+        if path.startswith("blocks."):
+            if np.shape(arr)[0] != cfg.n_layers:
+                raise ValueError(f"{path}: stacked dim {np.shape(arr)[0]} "
+                                 f"!= n_layers {cfg.n_layers}")
+            rest = path[len("blocks."):]
+            for layer in range(cfg.n_layers):
+                got[f"blocks.{layer}.{rest}"] = np.asarray(arr)[layer]
+        else:
+            got[path] = np.asarray(arr)
+    missing, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
+    if missing or extra:
+        raise KeyError(f"parameter tree mismatch: missing {missing}, "
+                       f"unexpected {extra}")
+    for name, arr in got.items():
+        if tuple(arr.shape) != tuple(want[name].shape):
+            raise ValueError(f"{name}: shape {tuple(arr.shape)} != "
+                             f"{tuple(want[name].shape)}")
+        parent, leaf = name.rsplit(".", 1)
+        model.get_submodule(parent)[leaf] = nn.Parameter(
+            _to_tensor(arr, dev), requires_grad=False)
+    return model

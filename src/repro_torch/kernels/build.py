@@ -23,6 +23,8 @@ BUILD_DIR = _KERNELS_DIR.parents[2] / "build" / "repro_torch"
 # kernel name -> its CUDA source
 SOURCES: Dict[str, Path] = {
     "qmatmul": _KERNELS_DIR / "qmatmul" / "csrc" / "qmatmul.cu",
+    "flash_attention": (_KERNELS_DIR / "flash_attention" / "csrc"
+                        / "flash_attention.cu"),
 }
 
 NVCC_FLAGS = [

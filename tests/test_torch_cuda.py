@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.qmatmul import ops
 from repro_torch.kernels.qmatmul.ref import qlinear_ref
 
@@ -66,3 +68,88 @@ def test_qmatmul_wrapper_rejects_what_the_kernel_does_not_take(cuda):
                     shift=0)
     with pytest.raises(ValueError):
         ops.qlinear(x, w.cpu(), shift=0)
+
+
+def _qkv(rng, BH, Sq, Sk, hd, dtype, dev, scale=1.0):
+    return [(torch.from_numpy(rng.standard_normal((BH, S, hd)).astype(
+        np.float32)) * scale).to(dtype).to(dev) for S in (Sq, Sk, Sk)]
+
+
+# the grid of tests/test_flash_attention.py (block sweep as shapes), the
+# ragged causal q_start case, and the reduced and full head dims
+@pytest.mark.parametrize("BH,Sq,Sk,hd,causal,q_start", [
+    (2, 32, 32, 16, True, 0), (2, 64, 64, 8, True, 0),
+    (2, 128, 128, 32, True, 0), (2, 96, 96, 16, True, 0),
+    (2, 32, 32, 16, False, 0), (2, 64, 64, 8, False, 0),
+    (2, 128, 128, 32, False, 0), (2, 96, 96, 16, False, 0),
+    (1, 32, 64, 16, True, 32), (2, 20, 20, 16, True, 8),
+    (3, 130, 130, 64, True, 0), (4, 200, 200, 128, True, 0),
+])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_flash_kernel_matches_plain(cuda, BH, Sq, Sk, hd, causal, q_start,
+                                    dtype):
+    dt = torch.float32 if dtype == "fp32" else torch.bfloat16
+    q, k, v = _qkv(np.random.default_rng(Sq * hd + BH), BH, Sq, Sk, hd, dt,
+                   cuda)
+    before = flash_ops.launches
+    got = flash_ops.flash_attention(q, k, v, causal=causal, q_start=q_start)
+    torch.cuda.synchronize()
+    assert flash_ops.launches == before + 1
+    want = attention_ref(q, k, v, causal=causal, q_start=q_start)
+    assert got.dtype == dt and got.is_cuda
+    tol = dict(atol=2e-5, rtol=2e-5) if dtype == "fp32" else dict(atol=2e-2,
+                                                                  rtol=0)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def test_flash_kernel_is_stable_at_large_scores(cuda):
+    """Scores x100 reach ~1e4, where one fp32 ulp is ~1e-3: the kernel's
+    sequential FMAs and the plain version's cuBLAS product round the
+    scores differently, which moves a near-tied softmax by up to ~1e-3.
+    The online softmax must stay finite and within that."""
+    q, k, v = _qkv(np.random.default_rng(9), 1, 32, 32, 16, torch.float32,
+                   cuda)
+    got = flash_ops.flash_attention(q * 100, k * 100, v, causal=False)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(
+        got, attention_ref(q * 100, k * 100, v, causal=False),
+        atol=2e-3, rtol=0)
+
+
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q, k, v = _qkv(np.random.default_rng(1), 2, 16, 16, 16, torch.float32,
+                   cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_ops.flash_attention(q.transpose(1, 2).contiguous()
+                                  .transpose(1, 2), k, v)
+    with pytest.raises(TypeError):
+        flash_ops.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):
+        flash_ops.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_ops.flash_attention(q[..., :12].contiguous(),
+                                  k[..., :12].contiguous(),
+                                  v[..., :12].contiguous())
+    with pytest.raises(ValueError):
+        flash_ops.flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="q_start"):
+        flash_ops.flash_attention(q, k, v, q_start=-1)
+    with pytest.raises(ValueError, match="non-causal"):
+        flash_ops.flash_attention(q[:, :12].contiguous(),
+                                  k[:, :12].contiguous(),
+                                  v[:, :12].contiguous(), causal=False)
+
+
+def test_reduced_forward_launches_flash_once_per_layer(cuda):
+    from repro_torch.plan import build_plan
+
+    plan = build_plan("yi-6b", None, debug=True)
+    model = plan.init_params(seed=0)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, plan.cfg.vocab, (2, 40))).to(cuda)
+    before = flash_ops.launches
+    logits = model({"tokens": toks})
+    torch.cuda.synchronize()
+    assert flash_ops.launches == before + plan.cfg.n_layers
+    assert logits.shape == (2, 40, plan.cfg.vocab)
+    assert torch.isfinite(logits).all()

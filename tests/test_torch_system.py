@@ -134,12 +134,23 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 
 def test_import_loads_neither_jax_nor_reference():
+    """Every module of the port imports without jax, without the reference
+    package and without CUDA or Triton (kernels build at first launch)."""
+    src = ROOT / "src"
+    modules = sorted(
+        ".".join(p.relative_to(src).with_suffix("").parts).removesuffix(
+            ".__init__")
+        for p in (src / "repro_torch").rglob("*.py"))
+    assert "repro_torch.launch.serve" in modules
     code = (
-        "import sys, repro_torch, repro_torch.core, repro_torch.bridge, "
-        "repro_torch.configs, repro_torch.kernels.qmatmul, "
-        "repro_torch.kernels.build, repro_torch.quant\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
+        "import importlib, sys\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'triton')]\n"
         "assert not bad, bad\n"
+        "import torch\n"
+        "assert not torch.cuda.is_initialized()\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
