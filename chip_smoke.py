@@ -10,8 +10,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. Hold the qmatmul kernel against its plain torch version on the card with
    ``torch.equal``: the grid of the reference's kernel tests (every shape,
    all three operand pairs, both outputs, all three roundings, shifts 0-12,
-   bias and ReLU on and off), the paper models' GEMM shapes, and a forced
-   int32-wraparound case.
+   bias and ReLU on and off), the paper models' GEMM shapes, a forced
+   int32-wraparound case, and decode-sized M (1, 4, 16, 17) at K = 70 and
+   11008 for all three operand pairs with split-K on and off.
 3. The main path: compile the five paper models (Table III/V) at their
    published widths with ``build_paper_model(name, device="cuda")`` and
    answer three ``predict(x, "aie")`` requests per model at the Table III
@@ -26,8 +27,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
 5. Hold the flash-attention kernel against its plain torch version on the
    card: the grid of the reference's flash tests (every shape, causal and
    not, the q_start offset, the block sweep as shapes, bf16, scores x100),
-   the ragged q_start case and the yi-6b path shape [2*32, 2048, 128] bf16
-   causal. Tolerance: fp32 atol = rtol = 2e-5, bf16 atol 2e-2.
+   the ragged q_start case, all of that again in bf16 (the tensor-core
+   body), bf16 at every head dim (ragged causal, q_start, non-causal), and
+   the yi-6b path shape [2*32, 2048, 128] bf16 causal. Tolerance: fp32
+   atol = rtol = 2e-5, bf16 atol 2e-2.
 6. Prefill at full width: yi-6b (32 layers, d_model 4096, 6.06 B
    parameters, random bf16 weights from seed 0) through the plan's
    ``executable("prefill")`` on tokens [2, 2048] from numpy seed 0 (cut to
@@ -43,10 +46,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    shapes.
 8. Timing of the LM path: median prefill latency, decode tokens/s, the
    device time of a prefill and of a decode step split into flash, qmatmul
-   and other ops (torch.profiler), and the flash kernel at the path shape
-   beside its bound, its plain version and
-   ``torch.nn.functional.scaled_dot_product_attention`` (a yardstick the
-   port never calls).
+   and other ops (torch.profiler; the kernel's share must be non-zero, so a
+   renamed device function cannot hide in "other ops"), qmatmul at the two
+   LM shapes with the L2 cold (rotating over weight copies of more than
+   50 MB) beside its bound and, for the int8 head, ``torch._int_mm`` with x
+   zero-padded to 32 rows (no PyTorch call takes the a16w8 int16
+   operands), and the flash kernel at the path shape beside its bound, its
+   plain version and ``torch.nn.functional.scaled_dot_product_attention``
+   (yardsticks the port never calls).
 
 The last two lines are the ``kernels`` JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -97,10 +104,14 @@ CALLS = 3
 LM_QMATMUL = [(4, 4096, 64000, "int8", "int8", "int16"),
               (4, 11008, 4096, "int16", "int8", "int16")]
 
+# decode-sized M for the 16-row tile and split-K: (M, K, N)
+SMALL_M_SHAPES = [(M, K, 300) for M in (1, 4, 16, 17) for K in (70, 11008)]
+
 # flash cases (BH, Sq, Sk, hd, dtype, causal, q_start, x100): the grid of
 # tests/test_flash_attention.py, its block sweep as shapes, the ragged
-# q_start case, and the yi-6b path shape
-FLASH_CASES = (
+# q_start case, the whole grid again in bf16, bf16 at every head dim, and
+# the yi-6b path shape
+_FLASH_GRID = (
     [(2, s, s, hd, "fp32", c, 0, False)
      for s, hd in ((32, 16), (64, 8), (128, 32), (96, 16))
      for c in (True, False)]
@@ -109,6 +120,14 @@ FLASH_CASES = (
        (2, 64, 64, 16, "bf16", True, 0, False),
        (1, 32, 32, 16, "fp32", False, 0, True),
        (2, 20, 20, 16, "fp32", True, 8, False)]
+)
+FLASH_CASES = (
+    _FLASH_GRID
+    + [c[:4] + ("bf16",) + c[5:] for c in _FLASH_GRID if c[4] == "fp32"]
+    + [case for hd in (8, 16, 32, 64, 128)
+       for case in ((3, 77, 77, hd, "bf16", True, 0, False),
+                    (2, 48, 64, hd, "bf16", True, 16, False),
+                    (2, 96, 96, hd, "bf16", False, 0, False))]
 )
 FLASH_TOL = {"fp32": dict(atol=2e-5, rtol=2e-5), "bf16": dict(atol=2e-2,
                                                               rtol=0.0)}
@@ -132,13 +151,15 @@ def _rand(rng, shape, dtype):
 class Checker:
     """Runs kernel-vs-plain comparisons and keeps the largest difference."""
 
-    def __init__(self, qlinear, qlinear_ref):
-        self.qlinear, self.qlinear_ref = qlinear, qlinear_ref
+    def __init__(self, ops, qlinear_ref):
+        self.ops, self.qlinear_ref = ops, qlinear_ref
         self.cases = 0
         self.max_abs_err = 0
 
-    def compare(self, x, w, b, **kw):
-        got = self.qlinear(x, w, b, **kw)
+    def compare(self, x, w, b, plan=None, **kw):
+        """The kernel under its own plan, or under ``plan`` if given."""
+        got = (self.ops.qlinear(x, w, b, **kw) if plan is None else
+               self.ops.qlinear_planned(x, w, b, plan, **kw))
         want = self.qlinear_ref(x, w, b, **kw)
         self.cases += 1
         err = int((got.to(torch.int32) - want.to(torch.int32))
@@ -148,7 +169,7 @@ class Checker:
             raise AssertionError(
                 f"qmatmul kernel != plain version for x{tuple(x.shape)} "
                 f"{x.dtype} w{tuple(w.shape)} {w.dtype} bias={b is not None} "
-                f"{kw}: max |diff| {err}")
+                f"{kw} plan={plan}: max |diff| {err}")
 
 
 def check_grid(chk, dev):
@@ -302,6 +323,34 @@ def time_shapes(qlinear, qlinear_ref, dev, shapes):
               f"{plain:.6f} ms (not a yardstick), torch._int_mm "
               f"{'n/a' if lib is None else f'{lib:.6f} ms'}")
     return rows
+
+
+def check_small_m(chk, dev, sms):
+    """Decode-sized M over the full int16 range (the sum wraps int32 at
+    K = 11008), all three operand pairs, both outputs, each shape under its
+    own plan, with one split, and with six splits where K allows."""
+    rng = np.random.default_rng(17)
+    n_split = 0
+    for (M, K, N) in SMALL_M_SHAPES:
+        auto = chk.ops.plan(M, K, N, sms)
+        plans = {auto, chk.ops.Plan(auto.block_m, 1, K)}
+        if K > 1024:
+            plans.add(chk.ops.Plan(auto.block_m, 6, 1856))  # 6 x 1856 >= K
+        n_split += sum(p.splits > 1 for p in plans)
+        for dt_a, dt_b in OPERANDS:
+            x = torch.from_numpy(rng.integers(
+                -(2**15) if dt_a == "int16" else -128,
+                2**15 if dt_a == "int16" else 128, (M, K)).astype(dt_a)).to(dev)
+            w = torch.from_numpy(_rand(rng, (K, N), dt_b)).to(dev)
+            b = torch.from_numpy(rng.integers(
+                -(2**31), 2**31, (N,)).astype(np.int32)).to(dev)
+            for p in plans:
+                for out in OUTS:
+                    chk.compare(x, w, b, plan=p, shift=9, relu=out == "int8",
+                                out_dtype=out, rounding="half_even")
+    if n_split == 0:
+        raise AssertionError("no small-M case ran with split-K")
+    return n_split
 
 
 def check_lm_shapes(chk, dev):
@@ -546,29 +595,53 @@ def run_serve(dev, model, qmatmul_ops):
                 shifts=plan.ir.quant["mlp_shifts"])
 
 
+L2_BYTES = 50e6   # the H100's L2: rotating over more than this keeps it cold
+
+
 def time_lm_qmatmul(qlinear, qlinear_ref, dev):
+    """qmatmul at the LM shapes with the L2 cold: a decode step streams 32
+    layers' different weights, so each call takes the next of enough weight
+    copies to exceed the L2. The int8 head gets ``torch._int_mm`` with x
+    zero-padded to 32 rows as a yardstick for the product alone (no SRS);
+    no PyTorch call takes the a16w8 int16 operands."""
     rng = np.random.default_rng(13)
     rows = []
     for (M, K, N, dx, dw, out) in LM_QMATMUL:
         x = torch.from_numpy(_rand(rng, (M, K), dx)).to(dev)
-        w = torch.from_numpy(_rand(rng, (K, N), dw)).to(dev)
+        n_copies = int(2 * L2_BYTES // (K * N)) + 1
+        ws = [torch.from_numpy(_rand(rng, (K, N), dw)).to(dev)
+              for _ in range(n_copies)]
         kw = dict(shift=7, out_dtype=out)
-        ms = device_ms(lambda: qlinear(x, w, None, **kw))
-        plain = device_ms(lambda: qlinear_ref(x, w, None, **kw), iters=10)
+        turn = iter(range(10**9))
+
+        def cold(fn):
+            return lambda: fn(ws[next(turn) % n_copies])
+
+        ms = device_ms(cold(lambda w: qlinear(x, w, None, **kw)))
+        plain = device_ms(lambda: qlinear_ref(x, ws[0], None, **kw), iters=10)
+        lib, lib_note = None, "no PyTorch call takes int16 x int8 operands"
+        if dx == "int8":
+            xp = torch.zeros((32, K), dtype=torch.int8, device=dev)
+            xp[:M] = x
+            lib = device_ms(cold(lambda w: torch._int_mm(xp, w)))
+            lib_note = (f"torch._int_mm with x zero-padded from {M} to 32 "
+                        f"rows, int32 out, no SRS")
         ops = 2.0 * M * K * N
         nbytes = x.numel() * x.element_size() + K * N + M * N * 2
         t_ops = ops / H100_INT8_OPS * 1e3
         t_bytes = nbytes / H100_BYTES_PER_S * 1e3
         rows.append(dict(
             M=M, K=K, N=N, x=dx, w=dw, out=out, ms=ms, plain_ms=plain,
-            library_ms=None, library_note="torch._int_mm takes M > 16 only",
-            bound_ms=max(t_ops, t_bytes),
+            library_ms=lib, library_note=lib_note, l2="cold",
+            weight_copies=n_copies, bound_ms=max(t_ops, t_bytes),
             bound_by="operations" if t_ops >= t_bytes else "bytes",
             ops=ops, bytes=nbytes))
-        print(f"qmatmul {M}x{K}x{N} {dx}x{dw}->{out}: kernel {ms:.6f} ms, "
-              f"bound {max(t_ops, t_bytes):.6f} ms ({rows[-1]['bound_by']}), "
-              f"plain {plain:.6f} ms (not a yardstick), torch._int_mm n/a "
-              f"(M <= 16)")
+        print(f"qmatmul {M}x{K}x{N} {dx}x{dw}->{out}, L2 cold ({n_copies} "
+              f"weight copies): kernel {ms:.6f} ms, bound "
+              f"{max(t_ops, t_bytes):.6f} ms ({rows[-1]['bound_by']}), plain "
+              f"{plain:.6f} ms (not a yardstick), library "
+              f"{'n/a' if lib is None else f'{lib:.6f} ms'} ({lib_note})")
+        del ws
     return rows
 
 
@@ -627,18 +700,21 @@ def main() -> int:
         build.load(name)
 
     # phase 2: kernel vs plain version
-    chk = Checker(ops.qlinear, qlinear_ref)
+    chk = Checker(ops, qlinear_ref)
     check_grid(chk, dev)
     n_grid = chk.cases
     models = {name: build_paper_model(name, device=dev) for name in PAPER_MODELS}
     shapes = path_shapes(models)
     check_path_shapes(chk, dev, shapes)
     wrap_k = check_wraparound(chk, dev)
+    n_split = check_small_m(
+        chk, dev, torch.cuda.get_device_properties(0).multi_processor_count)
     check_lm_shapes(chk, dev)
     torch.cuda.synchronize()
     print(f"kernel == plain: {chk.cases} cases ({n_grid} grid, path shapes "
-          f"{shapes}, wraparound K={wrap_k}, LM shapes {LM_QMATMUL}), "
-          f"max |diff| {chk.max_abs_err}")
+          f"{shapes}, wraparound K={wrap_k}, small M {SMALL_M_SHAPES} with "
+          f"{n_split} split-K plans, LM shapes {LM_QMATMUL}), max |diff| "
+          f"{chk.max_abs_err}")
 
     # phase 3: the main path, counted from zero
     rng = np.random.default_rng(0)
@@ -702,7 +778,12 @@ def main() -> int:
     # phase 7: fifo serving at full width, quantized, counted from zero
     srv = run_serve(dev, model, ops)
 
-    # phase 8: timing of the LM path
+    # phase 8: timing of the LM path; a kernel renamed out of the
+    # profiler's match would show as zero here
+    if pre["split"]["flash_ms"] <= 0 or srv["split"]["qmatmul_ms"] <= 0:
+        raise AssertionError(
+            f"profiler split found no kernel time: prefill {pre['split']}, "
+            f"decode step {srv['split']}")
     print(f"prefill [{PREFILL_BATCH}, {PREFILL_SEQ}] yi-6b: median "
           f"{pre['median_ms']:.4f} ms (host clock, 5 calls after warm-up, "
           f"all {[round(x, 4) for x in pre['latencies_ms']]}); device: flash "

@@ -3,8 +3,10 @@ device.
 
 A CPU tensor goes to the plain version (:func:`attention_ref`). A CUDA
 tensor goes to the hand-written Hopper kernel in
-``csrc/flash_attention.cu``, or the call raises: nothing falls back. The
-kernel masks ragged edges itself, so nothing is padded here.
+``csrc/flash_attention.cu``, or the call raises: nothing falls back. bf16
+runs on the tensor cores (``flash_kernel_mma``), fp32 on the CUDA cores
+(``flash_kernel``). The kernel masks ragged edges itself, so nothing is
+padded here.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ launches = 0
 HEAD_DIMS = (8, 16, 32, 64, 128)   # head dims the kernel is instantiated for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_Q_TILES = 65535               # grid y: one block per 64 query rows
+_ALIGN = 16                        # bf16 tiles are copied 16 bytes at a time
 
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -89,6 +92,8 @@ def _check_kernel_args(q, k, v, q_start: int) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if q.dtype == torch.bfloat16 and t.data_ptr() % _ALIGN:
+            raise ValueError(f"bf16 {name} must be {_ALIGN}-byte aligned")
     if k.shape[1] < 1:
         raise ValueError("flash kernel needs at least one key")
     if not 0 <= q_start < 2**30:
@@ -111,7 +116,9 @@ def flash_attention(
 ) -> torch.Tensor:
     """Forward attention with an online softmax; output in q's dtype.
 
-    Within 2e-5 (fp32) of :func:`attention_ref`. ``block_q``/``block_k``
+    Within 2e-5 (fp32) and 2e-2 (bf16) of :func:`attention_ref`; the bf16
+    kernel feeds the probabilities to the PV product as two bf16 parts
+    (hi + lo). ``block_q``/``block_k``
     only feed the reference wrapper's argument checks
     (:func:`_check_blocks`); the CUDA kernel picks its own tiling.
     """

@@ -3,13 +3,15 @@
 A CPU tensor goes to the plain version (:func:`qlinear_ref`). A CUDA tensor
 goes to the hand-written Hopper kernel in ``csrc/qmatmul.cu``, or the call
 raises: nothing falls back. The kernel masks ragged M, N and K edges itself,
-so no padding happens here.
+so no padding happens here. :func:`plan` picks the kernel's output tile and
+its split of K from the shape and the card's SM count.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -19,6 +21,8 @@ from repro_torch.quant.srs import TORCH_DTYPES, VALID_ROUNDING
 
 # Kernel launches since import (or since a caller reset it to 0). Only a
 # launch of the CUDA kernel counts; the plain version on the CPU does not.
+# One call counts once, also when split-K runs it as two device functions
+# (qmatmul_kernel, then qmatmul_kernel_reduce).
 launches = 0
 
 # (x dtype, w dtype) pairs and output dtypes the kernel is instantiated for
@@ -30,14 +34,66 @@ _OPERANDS = {
 _OUT_DTYPES = ("int8", "int16")
 _BITS = {torch.int8: 8, torch.int16: 16}
 _MAX_SHIFT = 31  # int32 accumulator: a larger shift is undefined
+_MAX_GRID_YZ = 65535  # grid y (row tiles) and z (splits)
 
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p,
 ]
+
+BLOCK_N = 128          # output columns per block
+BLOCK_K = 64           # K per pipeline stage; split boundaries fall on it
+SMALL_M = 16           # M up to this takes the 16-row tile, else 64 rows
+MIN_K_PER_SPLIT = 512  # a split walks at least this much of K
+WAVES = 2              # split K while the tiles fill fewer waves of SMs
+
+
+class Plan(NamedTuple):
+    """How the kernel tiles one call: ``block_m`` output rows per block and
+    ``splits`` ranges of K, each ``k_per_split`` long (the last one may be
+    shorter)."""
+    block_m: int
+    splits: int
+    k_per_split: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan(M: int, K: int, N: int, sms: int) -> Plan:
+    """The tile and split-K plan for an (M, K) x (K, N) call on a card with
+    ``sms`` SMs.
+
+    Split K only when the (M, N) tiles give fewer than ``WAVES`` waves of
+    blocks, and never below ``MIN_K_PER_SPLIT`` of K per split. Split
+    boundaries are multiples of ``BLOCK_K``.
+    """
+    block_m = SMALL_M if M <= SMALL_M else 64
+    tiles = _cdiv(M, block_m) * _cdiv(N, BLOCK_N)
+    splits = 1
+    if 0 < tiles < WAVES * sms:
+        splits = max(1, min(_cdiv(WAVES * sms, tiles), K // MIN_K_PER_SPLIT))
+    if splits == 1:
+        return Plan(block_m, 1, K)
+    k_per_split = _cdiv(_cdiv(K, splits), BLOCK_K) * BLOCK_K
+    return Plan(block_m, _cdiv(K, k_per_split), k_per_split)
+
+
+def split_ranges(p: Plan, K: int) -> List[Tuple[int, int]]:
+    """The [lo, hi) range of K that each split of ``p`` sums."""
+    return [(s * p.k_per_split, min(K, (s + 1) * p.k_per_split))
+            for s in range(p.splits)]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _library() -> ctypes.CDLL:
@@ -98,26 +154,48 @@ def qlinear(
 
     Bit-exact against :func:`qlinear_ref`. ``block`` and ``acc_blocks``
     are accepted for compatibility with the reference's signature and
-    ignored: the CUDA kernel picks its own tiling.
+    ignored: the CUDA kernel's tiling comes from :func:`plan`.
     """
-    global launches
     if x.device.type == "cpu":
         return qlinear_ref(x, w, bias, shift=shift, relu=relu,
                            out_dtype=out_dtype, rounding=rounding)
+    return qlinear_planned(x, w, bias, None, shift=shift, relu=relu,
+                           out_dtype=out_dtype, rounding=rounding)
+
+
+def qlinear_planned(x: torch.Tensor, w: torch.Tensor,
+                    bias: Optional[torch.Tensor], p: Optional[Plan], *,
+                    shift: int, relu: bool = False, out_dtype: str = "int8",
+                    rounding: str = "half_up") -> torch.Tensor:
+    """The CUDA kernel under plan ``p``, or under :func:`plan`'s for the
+    shape and card if ``p`` is None (what :func:`qlinear` does). Tests pass
+    a plan to run one shape with and without split-K."""
+    global launches
     _check(x, w, bias, shift, out_dtype, rounding)
     M, K = x.shape
     N = w.shape[1]
+    if p is None:
+        p = plan(M, K, N, _sm_count(x.device.index
+                                    if x.device.index is not None
+                                    else torch.cuda.current_device()))
     y = torch.empty((M, N), dtype=TORCH_DTYPES[out_dtype], device=x.device)
     if M == 0 or N == 0:
         return y
+    if _cdiv(M, p.block_m) > _MAX_GRID_YZ or p.splits > _MAX_GRID_YZ:
+        raise ValueError(f"qmatmul kernel grid too large for M={M} under "
+                         f"{p}")
+    ws = (torch.empty((p.splits, M, N), dtype=torch.int32, device=x.device)
+          if p.splits > 1 else None)
     lib = _library()
     with torch.cuda.device(x.device):
         err = lib.qmatmul_launch(
             x.data_ptr(), w.data_ptr(),
             None if bias is None else bias.data_ptr(), y.data_ptr(),
+            None if ws is None else ws.data_ptr(),
             M, K, N,
             _BITS[x.dtype], _BITS[w.dtype], _BITS[y.dtype],
             shift, VALID_ROUNDING.index(rounding), int(relu),
+            p.block_m, p.splits, p.k_per_split,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:

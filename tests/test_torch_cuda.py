@@ -70,6 +70,36 @@ def test_qmatmul_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         ops.qlinear(x, w.cpu(), shift=0)
 
 
+@pytest.mark.parametrize("M", [1, 4, 16, 17])
+@pytest.mark.parametrize("K", [70, 11008])
+@pytest.mark.parametrize("dt_a,dt_b", [("int8", "int8"), ("int16", "int8"),
+                                       ("int16", "int16")])
+def test_qmatmul_small_m_and_split_k_equal_plain(cuda, M, K, dt_a, dt_b):
+    """The 16- and 64-row tiles at decode-sized M, each with its plan's
+    split of K and with one split, over the full int16 range (the sum
+    wraps int32 at K = 11008)."""
+    rng = np.random.default_rng(M * K)
+    N = 300
+    x = torch.from_numpy(rng.integers(
+        -(2**15) if dt_a == "int16" else -128,
+        2**15 if dt_a == "int16" else 128, (M, K)).astype(dt_a)).to(cuda)
+    w = _rand(rng, (K, N), dt_b, cuda)
+    b = torch.from_numpy(
+        rng.integers(-(2**31), 2**31, (N,)).astype(np.int32)).to(cuda)
+    auto = ops.plan(M, K, N, 132)
+    plans = {auto, ops.Plan(auto.block_m, 1, K)}
+    if K > 1024:
+        plans.add(ops.Plan(auto.block_m, 6, 1856))   # 6 splits tile 11008
+    before = ops.launches
+    for p in plans:
+        for out in ("int8", "int16"):
+            kw = dict(shift=9, relu=out == "int8", out_dtype=out,
+                      rounding="half_even")
+            got = ops.qlinear_planned(x, w, b, p, **kw)
+            assert torch.equal(got, qlinear_ref(x, w, b, **kw)), (p, out)
+    assert ops.launches == before + 2 * len(plans)
+
+
 def _qkv(rng, BH, Sq, Sk, hd, dtype, dev, scale=1.0):
     return [(torch.from_numpy(rng.standard_normal((BH, S, hd)).astype(
         np.float32)) * scale).to(dtype).to(dev) for S in (Sq, Sk, Sk)]
@@ -100,6 +130,25 @@ def test_flash_kernel_matches_plain(cuda, BH, Sq, Sk, hd, causal, q_start,
     tol = dict(atol=2e-5, rtol=2e-5) if dtype == "fp32" else dict(atol=2e-2,
                                                                   rtol=0)
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("hd", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("causal,Sk,q_start", [
+    (True, 77, 0), (False, 77, 0), (True, 93, 16), (False, 128, 0),
+])
+def test_flash_bf16_every_head_dim(cuda, hd, causal, Sk, q_start):
+    """The tensor-core body at every instantiated head dim, with a ragged
+    Sk and a q_start offset."""
+    assert hd in flash_ops.HEAD_DIMS
+    Sq = Sk - q_start
+    q, k, v = _qkv(np.random.default_rng(hd + Sk), 3, Sq, Sk, hd,
+                   torch.bfloat16, cuda)
+    got = flash_ops.flash_attention(q, k, v, causal=causal, q_start=q_start,
+                                    block_k=Sk if not causal else None)
+    torch.cuda.synchronize()
+    want = attention_ref(q, k, v, causal=causal, q_start=q_start)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)
 
 
 def test_flash_kernel_is_stable_at_large_scores(cuda):

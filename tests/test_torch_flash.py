@@ -122,3 +122,75 @@ def test_plain_version_launches_nothing():
     _, (tq, tk, tv) = _both(_qkv(1, 8, 8, 8), "fp32")
     flash_attention(tq, tk, tv)
     assert ops.launches == before
+
+
+# --- the arithmetic of the bf16 tensor-core kernel ------------------------
+
+def _mma_kernel_emulation(q, k, v, *, causal, q_start, split_p, bk=64):
+    """The bf16 kernel's arithmetic on the CPU: scores in fp32 in the log2
+    domain (scale hd**-0.5 * log2 e), key tiles of 64 with an online
+    softmax in fp32, P rounded to bf16 before the PV product (with
+    ``split_p``, P = hi + lo in two bf16 parts, as the kernel does), fp32
+    accumulation, o = acc / max(l, 1e-30) rounded once to bf16."""
+    BH, Sq, hd = q.shape
+    Sk = k.shape[1]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    scale_log2 = torch.tensor(1.4426950408889634 / hd ** 0.5,
+                              dtype=torch.float32)
+    m = torch.full((BH, Sq, 1), -1e30)
+    l = torch.zeros((BH, Sq, 1))
+    acc = torch.zeros((BH, Sq, hd))
+    qpos = q_start + torch.arange(Sq)[:, None]
+    for k0 in range(0, Sk, bk):
+        s = qf @ kf[:, k0:k0 + bk].transpose(1, 2) * scale_log2
+        if causal:
+            kpos = k0 + torch.arange(s.shape[-1])[None, :]
+            s = s.masked_fill(kpos > qpos, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        p_hi = p.bfloat16().float()
+        pv = p_hi @ vf[:, k0:k0 + bk]
+        if split_p:
+            pv = pv + (p - p_hi).bfloat16().float() @ vf[:, k0:k0 + bk]
+        acc = acc * alpha + pv
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).bfloat16()
+
+
+@pytest.mark.parametrize("BH,Sq,Sk,hd,causal,q_start", [
+    (2, 32, 32, 16, True, 0), (2, 64, 64, 8, True, 0),
+    (2, 128, 128, 32, True, 0), (2, 96, 96, 16, True, 0),
+    (2, 32, 32, 16, False, 0), (2, 64, 64, 8, False, 0),
+    (2, 128, 128, 32, False, 0), (2, 96, 96, 16, False, 0),
+    (1, 32, 64, 16, True, 32), (2, 20, 20, 16, True, 0),
+    (2, 100, 100, 64, True, 0), (1, 130, 130, 128, True, 0),
+])
+@pytest.mark.parametrize("split_p", [False, True])
+def test_bf16_probabilities_stay_within_tolerance(BH, Sq, Sk, hd, causal,
+                                                  q_start, split_p):
+    """P rounded to bf16 before PV (the plain chunked attention's
+    rounding), and P split into bf16 hi + lo (the tensor-core kernel's),
+    both stay within 2e-2 of the plain version and of the JAX kernel
+    (interpret mode), at the reference grid's shapes in bf16."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(BH, Sq, Sk, hd, seed=Sq + hd),
+                                       "bf16")
+    got = _mma_kernel_emulation(tq, tk, tv, causal=causal, q_start=q_start,
+                                split_p=split_p)
+    oracle = attention_ref(tq, tk, tv, causal=causal, q_start=q_start)
+    np.testing.assert_allclose(_np(got), _np(oracle), atol=2e-2)
+    want = jax_flash(jq, jk, jv, causal=causal, q_start=q_start)
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-2)
+
+
+@pytest.mark.parametrize("split_p", [False, True])
+def test_bf16_probabilities_ragged_q_start(split_p):
+    """Ragged Sk with q_start > 0: the kernel masks the keys past Sk, so it
+    is held to the plain version only (the reference wrapper pads them into
+    the softmax there; see the padding-fault test above)."""
+    _, (tq, tk, tv) = _both(_qkv(2, 20, 20, 8, seed=7), "bf16")
+    got = _mma_kernel_emulation(tq, tk, tv, causal=True, q_start=8,
+                                split_p=split_p)
+    want = attention_ref(tq, tk, tv, causal=True, q_start=8)
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-2)
