@@ -11,8 +11,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``torch.equal``: the grid of the reference's kernel tests (every shape,
    all three operand pairs, both outputs, all three roundings, shifts 0-12,
    bias and ReLU on and off), the paper models' GEMM shapes, a forced
-   int32-wraparound case, and decode-sized M (1, 4, 16, 17) at K = 70 and
-   11008 for all three operand pairs with split-K on and off.
+   int32-wraparound case, decode-sized M (1, 4, 16, 17) at K = 70 and
+   11008 for all three operand pairs with split-K on and off, and the two
+   LM shapes at M = 4 and at M = 8 (phase 9's batch) with split-K on and
+   off.
 3. The main path: compile the five paper models (Table III/V) at their
    published widths with ``build_paper_model(name, device="cuda")`` and
    answer three ``predict(x, "aie")`` requests per model at the Table III
@@ -54,6 +56,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
    operands), and the flash kernel at the path shape beside its bound, its
    plain version and ``torch.nn.functional.scaled_dot_product_attention``
    (yardsticks the port never calls).
+
+9. Continuous serving at full width, quantized, on phase 6's model and
+   phase 7's calibrated plan: one bucket of batch 8 x max_len 512,
+   ``steps_per_dispatch`` 4, the paged KV pool of ``paged=True`` (264 pages
+   of 16 tokens), two waves of 12 requests (a shared 40-token system
+   prompt plus 2-8 unique tokens, ``max_new_tokens`` staggered over 4-24,
+   numpy seed fixed here), then one wave through the dense KV cache. Each
+   run is counted from zero: qmatmul must launch 33 x k per micro-run; the
+   scheduler must refill slots; wave 2 must map prefix pages published by
+   wave 1; after each run the pages in use must be the scratch pages and
+   the prefix entries; wave 2 must build no step and hit the cache. Every
+   stream must equal a plain greedy loop over ``DecoderLM.decode_step``
+   (each request in its own batch row from position 0, quantized, same
+   model) up to the first step whose top-2 logit gap is under
+   ``CONT_MIN_GAP``. Prints tokens/s on the host clock, dispatches,
+   micro-runs, refills, the prefix-skip share, ms per micro-run, and the
+   device time split, largest device entries and idle share of one
+   micro-run in steady decode, paged and dense.
 
 The last two lines are the ``kernels`` JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -100,9 +120,11 @@ REQUESTS = [("token_mlp_s16", 512), ("channel_mlp_s16", 196),
 CALLS = 3
 
 # qmatmul on the LM path (M, K, N, x dtype, w dtype, out dtype): the int8
-# LM head of a batch-4 decode step and its a16w8 MLP down-projection
+# LM head of a batch-4 decode step and its a16w8 MLP down-projection, and
+# the same at batch 8 (the continuous bucket of phase 9)
 LM_QMATMUL = [(4, 4096, 64000, "int8", "int8", "int16"),
               (4, 11008, 4096, "int16", "int8", "int16")]
+LM_QMATMUL_M8 = [(8,) + s[1:] for s in LM_QMATMUL]
 
 # decode-sized M for the 16-row tile and split-K: (M, K, N)
 SMALL_M_SHAPES = [(M, K, 300) for M in (1, 4, 16, 17) for K in (70, 11008)]
@@ -141,6 +163,12 @@ FLASH_PATH = (PREFILL_BATCH * 32, PREFILL_SEQ, PREFILL_SEQ, 128, "bf16",
 # so logits agree to bf16 noise
 PREFILL_TOL = dict(mean_abs=0.02, max_abs=0.5, argmax_agree=0.99)
 SERVE_BATCH, SERVE_MAX_LEN, SERVE_TOKENS, SERVE_WAVES = 4, 256, 8, 2
+# phase 9: continuous serving; streams are held to the plain loop up to the
+# first step whose top-2 logit gap is under CONT_MIN_GAP (random
+# full-width weights guarantee no gap beyond it)
+CONT_BATCH, CONT_MAX_LEN, CONT_K = 8, 512, 4
+CONT_WAVES, CONT_REQUESTS, CONT_SYSTEM = 2, 12, 40
+CONT_SEED, CONT_MIN_GAP = 900, 0.1
 
 
 def _rand(rng, shape, dtype):
@@ -353,19 +381,29 @@ def check_small_m(chk, dev, sms):
     return n_split
 
 
-def check_lm_shapes(chk, dev):
-    """qmatmul at the LM shapes with the path's operand types; int16 x over
-    both a moderate and the full range (the int32 sum then wraps)."""
+def check_lm_shapes(chk, dev, sms):
+    """qmatmul at the LM shapes with the path's operand types, at M = 4 and
+    8, each under its own plan, with one split and with four; int16 x over
+    both a moderate and the full range (the int32 sum then wraps). Returns
+    the number of split-K plans run."""
     rng = np.random.default_rng(5)
-    for (M, K, N, dx, dw, out) in LM_QMATMUL:
+    n_split = 0
+    for (M, K, N, dx, dw, out) in LM_QMATMUL + LM_QMATMUL_M8:
         w = torch.from_numpy(_rand(rng, (K, N), dw)).to(dev)
         xs = [torch.from_numpy(_rand(rng, (M, K), dx)).to(dev)]
         if dx == "int16":
             xs.append(torch.from_numpy(rng.integers(
                 -32768, 32768, (M, K)).astype(np.int16)).to(dev))
+        auto = chk.ops.plan(M, K, N, sms)
+        plans = {auto, chk.ops.Plan(auto.block_m, 1, K),
+                 chk.ops.Plan(auto.block_m, 4, K // 4)}
+        n_split += sum(p.splits > 1 for p in plans)
         for x in xs:
-            for shift in (2, 7, 10):
-                chk.compare(x, w, None, shift=shift, out_dtype=out)
+            for p in plans:
+                for shift in (2, 7, 10):
+                    chk.compare(x, w, None, plan=p, shift=shift,
+                                out_dtype=out)
+    return n_split
 
 
 class FlashChecker:
@@ -450,12 +488,17 @@ def profile_split(fn, calls=3):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3 / calls
     split = dict(flash_ms=0.0, qmatmul_ms=0.0, other_device_ms=0.0)
-    for e in device_events(prof):
+    events = device_events(prof)
+    for e in events:
         key = ("flash_ms" if "flash_kernel" in e.key else
                "qmatmul_ms" if "qmatmul_kernel" in e.key else
                "other_device_ms")
         split[key] += e.self_device_time_total / 1e3 / calls
     split["profiled_wall_ms"] = wall
+    # the largest device entries, ms per call
+    split["top"] = [(e.key[:60], e.self_device_time_total / 1e3 / calls)
+                    for e in sorted(events, key=lambda e:
+                                    -e.self_device_time_total)[:6]]
     return split
 
 
@@ -592,7 +635,216 @@ def run_serve(dev, model, qmatmul_ops):
     return dict(launches=launches, decode_steps=decode_steps,
                 step_ms=step_ms, tokens_per_s=SERVE_BATCH * 1e3 / step_ms,
                 split=split, batcher=batcher.stats()["buckets"],
-                shifts=plan.ir.quant["mlp_shifts"])
+                shifts=plan.ir.quant["mlp_shifts"], plan=plan)
+
+
+def continuous_requests(vocab, wave):
+    """One wave of phase 9: the shared system prompt plus 2-8 unique tokens
+    each, ``max_new_tokens`` staggered over 4-24."""
+    from repro_torch.serve import DecodeRequest
+
+    system = [int(t) for t in np.random.default_rng(CONT_SEED).integers(
+        1, vocab, CONT_SYSTEM)]
+    rng = np.random.default_rng(CONT_SEED + 1 + wave)
+    return [DecodeRequest(
+        f"c{wave}r{i}",
+        system + [int(t) for t in rng.integers(1, vocab,
+                                               int(rng.integers(2, 9)))],
+        max_new_tokens=4 + (20 * i) // (CONT_REQUESTS - 1))
+        for i in range(CONT_REQUESTS)]
+
+
+def greedy_loop(model, reqs, max_len):
+    """The plain version of continuous serving: greedy decode over
+    ``DecoderLM.decode_step`` from position 0, each request in its own batch
+    row (rows never see each other), teacher-forcing its prompt. Returns
+    per request id its generated tokens and the top-2 logit gap at each."""
+    dev = model.device
+    B = len(reqs)
+    steps = max(len(r.prompt) + r.max_new_tokens - 1 for r in reqs)
+    feed = np.full((steps, B), -1, np.int32)
+    for b, r in enumerate(reqs):
+        feed[:len(r.prompt), b] = r.prompt
+    feed_t = torch.from_numpy(feed).to(dev)
+    state = model.decode_state(B, max_len)
+    prev = torch.zeros(B, dtype=torch.int32, device=dev)
+    toks, gaps = [], []
+    for i in range(steps):
+        logits, state = model.decode_step(
+            state, torch.where(feed_t[i] >= 0, feed_t[i], prev), i)
+        top2 = torch.topk(logits, 2, dim=-1).values
+        prev = torch.argmax(logits, dim=-1).to(torch.int32)
+        toks.append(prev)
+        gaps.append(top2[:, 0] - top2[:, 1])
+    toks = torch.stack(toks).cpu().numpy()
+    gaps = torch.stack(gaps).cpu().numpy()
+    out = {}
+    for b, r in enumerate(reqs):
+        lo = len(r.prompt) - 1
+        out[r.request_id] = ([int(t) for t in toks[lo:lo + r.max_new_tokens,
+                                                    b]],
+                             [float(g) for g in gaps[lo:lo + r.max_new_tokens,
+                                                     b]])
+    return out
+
+
+def hold_to_loop(results, loop):
+    """Every stream equals the loop's up to the first step whose gap is under
+    CONT_MIN_GAP; returns (tokens compared, streams equal in full)."""
+    compared = full = 0
+    for rid, (want, gaps) in loop.items():
+        got = results[rid].tokens
+        if len(got) != len(want):
+            raise AssertionError(f"{rid}: {len(got)} tokens, expected "
+                                 f"{len(want)}")
+        n = next((i for i, g in enumerate(gaps) if g < CONT_MIN_GAP),
+                 len(want))
+        if got[:n] != want[:n]:
+            raise AssertionError(
+                f"{rid}: continuous {got} != plain loop {want} within the "
+                f"first {n} steps (gaps {[round(g, 4) for g in gaps]})")
+        compared += n
+        full += got == want
+    return compared, full
+
+
+def run_continuous(dev, model, plan, qmatmul_ops, flash_ops):
+    """Phase 9: continuous serving at full width, paged then dense."""
+    from repro_torch.serve import Bucket, BucketPolicy
+
+    cfg = plan.cfg
+    bucket = Bucket(CONT_MAX_LEN, CONT_BATCH)
+    per_step = cfg.n_layers + 1
+    waves = [continuous_requests(cfg.vocab, w) for w in range(CONT_WAVES)]
+    t0 = time.perf_counter()
+    loops = [greedy_loop(model, reqs, CONT_MAX_LEN) for reqs in waves]
+    print(f"continuous: plain greedy loop over {CONT_WAVES} x "
+          f"{CONT_REQUESTS} requests in {time.perf_counter() - t0:.1f} s")
+    out = dict(launches={})
+
+    def serve_wave(batcher, reqs, loop, label):
+        sched = batcher.scheduler
+        before = dict(sched.stats())
+        alloc = batcher.pool.allocator
+        paged0 = alloc.stats() if alloc is not None else None
+        for r in reqs:
+            batcher.submit(r)
+        torch.cuda.synchronize()
+        qmatmul_ops.launches = 0
+        flash_ops.launches = 0
+        t = time.perf_counter()
+        res = batcher.run()              # fetches its tokens: synchronized
+        wall = time.perf_counter() - t
+        launches, flash = qmatmul_ops.launches, flash_ops.launches
+        after = sched.stats()
+        runs = after["micro_runs"] - before["micro_runs"]
+        if launches != per_step * CONT_K * runs or runs == 0:
+            raise AssertionError(f"{label}: qmatmul launched {launches} "
+                                 f"times over {runs} micro-runs, expected "
+                                 f"{per_step} x {CONT_K} per micro-run")
+        if flash:
+            raise AssertionError(f"{label}: flash launched {flash} times")
+        refills = after["refills"] - before["refills"]
+        if refills <= 0:
+            raise AssertionError(f"{label}: no slot was refilled")
+        compared, full = hold_to_loop(res, loop)
+        if compared == 0:
+            raise AssertionError(f"{label}: no step clears the gap rule")
+        tokens = sum(len(r.tokens) for r in res.values())
+        row = dict(label=label, wall_s=wall, tokens=tokens,
+                   tokens_per_s=tokens / wall, launches=launches,
+                   dispatches=after["dispatches"] - before["dispatches"],
+                   micro_runs=runs, refills=refills,
+                   ms_per_micro_run=wall * 1e3 / runs, compared=compared,
+                   full=full, streams=len(res), cache=batcher.cache.stats())
+        if alloc is not None:
+            p = alloc.stats()
+            if p["pages_in_use"] != p["scratch_pages"] + p["prefix_entries"]:
+                raise AssertionError(f"{label}: pages not reclaimed: {p}")
+            row["prefix_hits"] = p["prefix_hits"] - paged0["prefix_hits"]
+            skipped = p["skipped_prefill_tokens"] - paged0[
+                "skipped_prefill_tokens"]
+            row["skipped_prefill_tokens"] = skipped
+            row["prompt_tokens"] = sum(len(r.prompt) for r in reqs)
+            row["prefix_skip_share"] = skipped / row["prompt_tokens"]
+            row["paged"] = p
+        print(f"continuous {label}: {len(res)} requests, {tokens} tokens in "
+              f"{wall:.4f} s = {row['tokens_per_s']:.4f} tokens/s (host "
+              f"clock); {row['dispatches']} dispatches, {runs} micro-runs "
+              f"({row['ms_per_micro_run']:.4f} ms each), {refills} refills; "
+              f"{launches} qmatmul launches == {per_step} x {CONT_K} x {runs}; "
+              f"vs plain loop: {compared} tokens compared, {full}/{len(res)} "
+              f"streams equal in full"
+              + (f"; prefix hits {row['prefix_hits']}, prefill skipped "
+                 f"{row['skipped_prefill_tokens']}/{row['prompt_tokens']} "
+                 f"prompt tokens ({row['prefix_skip_share']:.4f}); pages in "
+                 f"use {row['paged']['pages_in_use']} == scratch "
+                 f"{row['paged']['scratch_pages']} + prefix entries "
+                 f"{row['paged']['prefix_entries']}"
+                 if alloc is not None else "") + f"; cache {row['cache']}")
+        return row
+
+    paged = plan.make_batcher(policy=BucketPolicy([bucket]),
+                              schedule="continuous", steps_per_dispatch=CONT_K,
+                              paged=True)
+    # K and V, bf16
+    pool_bytes = (2 * 2 * cfg.n_layers * paged.paged[0] * paged.paged[1]
+                  * cfg.n_kv * cfg.head_dim)
+    print(f"continuous paged: bucket {bucket.label}, k={CONT_K}, pool "
+          f"{paged.paged} = {pool_bytes / 1e9:.3f} GB for K and V")
+    rows = [serve_wave(paged, reqs, loop, f"paged wave {w}")
+            for w, (reqs, loop) in enumerate(zip(waves, loops))]
+    out["launches"]["paged"] = sum(r["launches"] for r in rows)
+    if rows[1]["prefix_hits"] <= 0:
+        raise AssertionError("wave 2 mapped no prefix page of wave 1")
+    c0, c1 = rows[0]["cache"], rows[1]["cache"]
+    if not (c1["builds"] == c0["builds"] and c1["hits"] > c0["hits"]):
+        raise AssertionError(f"wave 2 built a step or missed the cache: "
+                             f"{c0} -> {c1}")
+
+    dense = plan.make_batcher(policy=BucketPolicy([bucket]),
+                              schedule="continuous", steps_per_dispatch=CONT_K)
+    row = serve_wave(dense, waves[0], loops[0], "dense wave 0")
+    out["launches"]["dense"] = row["launches"]
+
+    # one micro-run in steady decode, paged and dense: every lane active
+    # at positions 100-103, state resident
+    lanes = dict(
+        feed=torch.full((CONT_K, CONT_BATCH), -1, dtype=torch.int32,
+                        device=dev),
+        start=torch.zeros((CONT_K, CONT_BATCH), dtype=torch.int32, device=dev),
+        active=torch.ones((CONT_K, CONT_BATCH), dtype=torch.bool, device=dev),
+        fresh=torch.zeros((CONT_K, CONT_BATCH), dtype=torch.bool, device=dev))
+    prev = torch.ones(CONT_BATCH, dtype=torch.int32, device=dev)
+    n_tables = CONT_MAX_LEN // paged.paged[1]
+    table = (torch.arange(CONT_BATCH * n_tables, dtype=torch.int32,
+                          device=dev).view(CONT_BATCH, n_tables))
+    out["micro_run"] = {}
+    for label, batcher, extra in (("paged", paged, (table,)),
+                                  ("dense", dense, ())):
+        exe = plan.serve_executable(
+            "masked_decode", batch=CONT_BATCH, max_len=CONT_MAX_LEN,
+            steps_per_dispatch=CONT_K,
+            **({"paged": batcher.paged} if batcher.paged else {}))
+        state = batcher.pool.acquire(CONT_BATCH, CONT_MAX_LEN)
+
+        def micro_run():
+            exe.fn(model, state, lanes["feed"], prev, 100, lanes["start"],
+                   lanes["active"], lanes["fresh"], *extra)
+
+        micro_run()
+        torch.cuda.synchronize()
+        lat = []
+        for _ in range(5):
+            t = time.perf_counter()
+            micro_run()
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t) * 1e3)
+        out["micro_run"][label] = dict(
+            median_ms=statistics.median(lat), latencies_ms=lat,
+            split=profile_split(micro_run, calls=2))
+        batcher.pool.release(CONT_BATCH, CONT_MAX_LEN, state)
+    return out
 
 
 L2_BYTES = 50e6   # the H100's L2: rotating over more than this keeps it cold
@@ -606,7 +858,7 @@ def time_lm_qmatmul(qlinear, qlinear_ref, dev):
     no PyTorch call takes the a16w8 int16 operands."""
     rng = np.random.default_rng(13)
     rows = []
-    for (M, K, N, dx, dw, out) in LM_QMATMUL:
+    for (M, K, N, dx, dw, out) in LM_QMATMUL + LM_QMATMUL_M8:
         x = torch.from_numpy(_rand(rng, (M, K), dx)).to(dev)
         n_copies = int(2 * L2_BYTES // (K * N)) + 1
         ws = [torch.from_numpy(_rand(rng, (K, N), dw)).to(dev)
@@ -707,14 +959,14 @@ def main() -> int:
     shapes = path_shapes(models)
     check_path_shapes(chk, dev, shapes)
     wrap_k = check_wraparound(chk, dev)
-    n_split = check_small_m(
-        chk, dev, torch.cuda.get_device_properties(0).multi_processor_count)
-    check_lm_shapes(chk, dev)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n_split = check_small_m(chk, dev, sms)
+    n_split_lm = check_lm_shapes(chk, dev, sms)
     torch.cuda.synchronize()
     print(f"kernel == plain: {chk.cases} cases ({n_grid} grid, path shapes "
           f"{shapes}, wraparound K={wrap_k}, small M {SMALL_M_SHAPES} with "
-          f"{n_split} split-K plans, LM shapes {LM_QMATMUL}), max |diff| "
-          f"{chk.max_abs_err}")
+          f"{n_split} split-K plans, LM shapes {LM_QMATMUL + LM_QMATMUL_M8} "
+          f"with {n_split_lm} split-K plans), max |diff| {chk.max_abs_err}")
 
     # phase 3: the main path, counted from zero
     rng = np.random.default_rng(0)
@@ -805,6 +1057,25 @@ def main() -> int:
     lm_rows = time_lm_qmatmul(ops.qlinear, qlinear_ref, dev)
     fl = time_flash(flash_ops, attention_ref, dev)
 
+    # phase 9: continuous serving at full width, each run counted from zero
+    cont = run_continuous(dev, model, srv["plan"], ops, flash_ops)
+    for label, mr in cont["micro_run"].items():
+        cs = mr["split"]
+        if cs["qmatmul_ms"] <= 0:
+            raise AssertionError(f"profiler split found no qmatmul time in "
+                                 f"a {label} micro-run: {cs}")
+        print(f"micro-run yi-6b quantized {label}, batch {CONT_BATCH}, "
+              f"k={CONT_K}: median {mr['median_ms']:.4f} ms (host clock, 5 "
+              f"calls, all {[round(x, 4) for x in mr['latencies_ms']]}); "
+              f"device: flash {cs['flash_ms']:.4f} ms + qmatmul "
+              f"{cs['qmatmul_ms']:.4f} ms + other ops "
+              f"{cs['other_device_ms']:.4f} ms, idle share "
+              f"{1 - device_busy_ms(cs) / mr['median_ms']:.3f} of the median "
+              f"(profiled wall {cs['profiled_wall_ms']:.4f} ms); largest "
+              f"device entries (ms per micro-run) "
+              f"{[(k, round(v, 4)) for k, v in cs['top']]}")
+    cont_launches = cont["launches"]["paged"] + cont["launches"]["dense"]
+
     per = {(r["M"], r["K"], r["N"]): r for r in rows_t + lm_rows}
     # one aie predict of every request configuration, and one quantized
     # yi-6b decode step at batch 4 (the head and 32 down-projections)
@@ -817,9 +1088,15 @@ def main() -> int:
     libs = [per[s]["library_ms"] for s in path]
     record = {"kernels": [{
         "name": "qmatmul", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": TPU_KERNEL, "launches": launches + srv["launches"],
-        "launches_by_path": {"paper models (phase 3)": launches,
-                             "yi-6b fifo serve (phase 7)": srv["launches"]},
+        "replaces": TPU_KERNEL,
+        "launches": launches + srv["launches"] + cont_launches,
+        "launches_by_path": {
+            "paper models (phase 3)": launches,
+            "yi-6b fifo serve (phase 7)": srv["launches"],
+            "yi-6b continuous paged serve (phase 9)":
+                cont["launches"]["paged"],
+            "yi-6b continuous dense serve (phase 9)":
+                cont["launches"]["dense"]},
         "exact": True, "max_abs_err": chk.max_abs_err, "cases": chk.cases,
         "work": "one aie predict of every request configuration and one "
                 "quantized yi-6b decode step at batch 4",

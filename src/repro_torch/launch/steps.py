@@ -9,11 +9,17 @@ shapes against the shapes they were built for.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.models.base import ArchConfig, ShapeSpec
+from repro_torch.models.base import (
+    ArchConfig,
+    PageView,
+    ShapeSpec,
+    state_batch_axes,
+    wipe_state_slots,
+)
 
 Step = Callable[..., object]
 
@@ -82,4 +88,101 @@ def make_prefill_decode_step(cfg: ArchConfig, batch: int, prefill_len: int,
         return torch.stack(toks, dim=1), state
 
     return prefill_decode
+
+
+def make_masked_decode_step(cfg: ArchConfig, batch: int, max_len: int, *,
+                            steps_per_dispatch: int = 1,
+                            paged: Optional[Tuple[int, int]] = None,
+                            spec: Optional[Tuple[int, int]] = None) -> Step:
+    """Slot-masked decode micro-run for continuous batching: one step per
+    (bucket, k), whose shapes never change under churn.
+
+    Every batch lane ("slot") may be at a different point of a request's
+    life. The per-slot control lanes are ``[k, batch]`` schedules the host
+    precomputes for the whole micro-run of k = ``steps_per_dispatch``
+    masked steps:
+
+    * ``fresh[i, b]`` — slot ``b`` is (re)admitted: its batch-laned state
+      is zeroed before anything reads it. Admission lands on micro-run
+      boundaries, so only row 0 may be set, and the wipe runs once, before
+      the k steps;
+    * ``start[i, b]`` — the global position the slot's request began at;
+      attention is windowed to ``[start[i, b], pos + i]`` (RoPE scores
+      depend only on relative position, so a request admitted at position
+      37 decodes as it would from 0);
+    * ``feed[i, b]`` — teacher forcing for chunked prefill: ``>= 0`` feeds
+      this prompt token, ``-1`` continues from the slot's previous argmax;
+    * ``active[i, b]`` — a slot whose request ends mid-run self-masks for
+      the remaining steps and emits token 0 (never read).
+
+    With ``paged=(page_count, page_size)`` the KV leaves are the shared
+    page pool and the step takes a ninth input, ``table`` [batch,
+    max_len // page_size] int32: attention then reads and writes at each
+    slot's LOCAL position ``pos + i - start[i, b]`` through its table, so
+    ``start`` may sit before the admission boundary when a prompt prefix
+    came from the prefix cache. The fresh wipe skips the pool leaves.
+
+    ``masked(model, state, feed [k,B], prev [B], pos, start [k,B],
+    active [k,B], fresh [k,B] [, table]) -> (toks [k,B] int32, last [B]
+    int32, state)``: ``pos`` is the micro-run's base position (a host
+    int), ``prev`` the previous micro-run's ``last``. The state is written
+    in place. The k steps are a Python loop of device work: nothing in it
+    reads a tensor back to the host.
+    """
+    if steps_per_dispatch < 1:
+        raise ValueError(
+            f"steps_per_dispatch must be >= 1, got {steps_per_dispatch}")
+    if spec is not None:
+        from repro_torch.serve.validation import SPEC_NOT_PORTED
+
+        raise NotImplementedError(SPEC_NOT_PORTED)
+    k = steps_per_dispatch
+    sched = (k, batch)
+    n_tables = page_size = 0
+    if paged is not None:
+        page_count, page_size = paged
+        if max_len % page_size:
+            raise ValueError(f"max_len {max_len} must be a multiple of "
+                             f"page_size {page_size}")
+        n_tables = max_len // page_size
+
+    @torch.inference_mode()
+    def masked_decode(model, state, feed: torch.Tensor, prev: torch.Tensor,
+                      pos: int, start: torch.Tensor, active: torch.Tensor,
+                      fresh: torch.Tensor,
+                      table: Optional[torch.Tensor] = None):
+        for name, t in (("feed", feed), ("start", start), ("active", active),
+                        ("fresh", fresh)):
+            _expect(name, t, sched)
+        _expect("prev", prev, (batch,))
+        if (table is None) != (paged is None):
+            raise ValueError("a paged step takes a page table, a dense "
+                             "step none")
+        if paged is not None:
+            _expect("table", table, (batch, n_tables))
+        if not 0 <= pos <= max_len - k:
+            raise ValueError(f"micro-run [{pos}, {pos + k}) outside the "
+                             f"bucket's {max_len} positions")
+        wipe_state_slots(state, fresh[0],
+                         state_batch_axes(state, paged is not None))
+        toks = []
+        last = prev
+        for i in range(k):
+            tok_in = torch.where(feed[i] >= 0, feed[i], last)
+            if paged is not None:
+                pages = PageView(table, pos + i - start[i], page_size)
+                logits, state = model.decode_step(state, tok_in, pos + i,
+                                                  pages=pages)
+            else:
+                logits, state = model.decode_step(state, tok_in, pos + i,
+                                                  window_start=start[i])
+            # a masked lane emits 0; a slot live at the next micro-run is
+            # active at step k-1, so ``last`` is always a valid next prev
+            last = torch.where(active[i],
+                               torch.argmax(logits, dim=-1).to(torch.int32),
+                               0)
+            toks.append(last)
+        return torch.stack(toks), last, state
+
+    return masked_decode
 

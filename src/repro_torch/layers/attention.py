@@ -1,9 +1,11 @@
-"""Attention: GQA self-attention and KV-cache decode (the dense parts).
+"""Attention: GQA self-attention and KV-cache decode, dense and paged.
 
 Prefill uses a query-chunked attention so the score matrix never lives at
 [B, H, S, S], or, behind ``USE_FLASH_KERNEL``, the flash-attention kernel
 (the hand-written CUDA kernel for tensors on the card, its plain version
-for tensors on the CPU). Decode attends one new token over the cache.
+for tensors on the CPU). Decode attends one new token over the cache: a
+dense [B, S, KV, hd] slab per layer, or the shared page pool through each
+slot's page table (plain torch indexing, as in the reference).
 """
 
 from __future__ import annotations
@@ -161,5 +163,56 @@ def decode_self_attention(
     if window_start is not None:
         kv_valid = kv_valid & (idx[None, :] >= window_start[:, None])
     o = mha(q, cache_k, cache_v, causal=False, kv_valid=kv_valid)
+    out = linear(params["wo"], o.reshape(B, 1, n_heads * head_dim))
+    return out, cache_k, cache_v
+
+
+def paged_decode_self_attention(
+    params: Params,
+    x: torch.Tensor,              # [B, 1, d] current token hidden
+    cache_k: torch.Tensor,        # [P, ps, KV, hd] this layer's page pool
+    cache_v: torch.Tensor,
+    pages,                        # models.base.PageView
+    *,
+    n_heads: int,
+    n_kv: int,
+    head_dim: int,
+    rope_theta: float = 10000.0,
+):
+    """One decode step against the paged KV layout.
+
+    Each slot ``b`` lives in its own coordinates: ``local_pos[b]`` (clipped
+    to ``[0, S - 1]``) is its position in its own sequence, page ``j`` of
+    its table holds local positions ``[j*ps, (j+1)*ps)``, and RoPE rotates
+    by the local position. The new K/V row is scattered IN PLACE to
+    ``(table[b, local//ps], local % ps)``. The caller guarantees that no
+    two lanes write the same row (empty and self-masked lanes carry their
+    own scratch pages), since duplicate indices in one ``index_put_`` have
+    no defined order on CUDA. The read gathers the slot's whole table into
+    ``[B, S, KV, hd]``, masks to ``j <= local[b]`` and goes through the
+    same :func:`mha` as the dense decode.
+
+    Returns (out [B, 1, d], cache_k, cache_v), the caches being the same
+    tensors.
+    """
+    B = x.shape[0]
+    ps = pages.page_size
+    table = pages.table.long()
+    S = table.shape[1] * ps
+    q = linear(params["wq"], x).reshape(B, 1, n_heads, head_dim)
+    k = linear(params["wk"], x).reshape(B, 1, n_kv, head_dim)
+    v = linear(params["wv"], x).reshape(B, 1, n_kv, head_dim)
+    local = pages.local_pos.long().clamp(0, S - 1)
+    inv_freq = rope_freqs(head_dim, rope_theta, device=x.device)
+    q = apply_rope(q, local[:, None], inv_freq)
+    k = apply_rope(k, local[:, None], inv_freq)
+    page_ids = table.gather(1, (local // ps)[:, None])[:, 0]
+    offs = local % ps
+    cache_k[page_ids, offs] = k[:, 0]
+    cache_v[page_ids, offs] = v[:, 0]
+    k_all = cache_k[table].reshape(B, S, n_kv, head_dim)
+    v_all = cache_v[table].reshape(B, S, n_kv, head_dim)
+    kv_valid = torch.arange(S, device=x.device)[None, :] <= local[:, None]
+    o = mha(q, k_all, v_all, causal=False, kv_valid=kv_valid)
     out = linear(params["wo"], o.reshape(B, 1, n_heads * head_dim))
     return out, cache_k, cache_v

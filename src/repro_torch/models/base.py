@@ -10,7 +10,7 @@ carries (the dense decoder LM). There is no ``ParamSpec``: a model is an
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Mapping, NamedTuple, Optional
 
 import torch
 
@@ -93,6 +93,65 @@ SHAPES: Dict[str, ShapeSpec] = {
 HEAD_SHIFTS = (5, 8, 11)
 
 PORTED_FAMILIES = ("dense",)
+
+
+class PageView(NamedTuple):
+    """The paged KV layout as one decode step sees it.
+
+    ``table`` [B, max_len // page_size] int32 maps each slot's logical
+    page index to a physical page of the shared pool; ``local_pos`` [B]
+    int32 is each slot's position in its OWN sequence (RoPE and cache
+    indexing both use it, which makes a page's contents a function of the
+    token prefix it encodes and so reusable across slots); ``page_size``
+    is a host int. See ``docs/memory_model.md``.
+    """
+
+    table: torch.Tensor
+    local_pos: torch.Tensor
+    page_size: int
+
+
+# Decode-state leaves that move to the paged layout: the self-attention KV
+# caches, [L, B, max_len, KV, hd] dense or [L, page_count, page_size, KV,
+# hd] in the shared pool.
+PAGED_STATE_KEYS = ("cache_k", "cache_v")
+
+
+def is_paged_state_key(name: str) -> bool:
+    """True for leaves that live in the shared page pool."""
+    return name in PAGED_STATE_KEYS
+
+
+def state_batch_axes(state: Mapping[str, torch.Tensor],
+                     paged: bool) -> Dict[str, int]:
+    """Per-leaf index of the batch axis of a decode state.
+
+    Every batch-laned leaf of the port's states is ``[L, B, ...]`` (axis
+    1). With ``paged`` the pool leaves have a page axis instead and map
+    to ``-1``: they need no per-slot wipe, since stale pages are invisible
+    behind the local-position mask, and :func:`wipe_state_slots` skips
+    them.
+    """
+    return {name: -1 if paged and is_paged_state_key(name) else 1
+            for name in state}
+
+
+def wipe_state_slots(state: Mapping[str, torch.Tensor],
+                     slot_mask: torch.Tensor,
+                     batch_axes: Mapping[str, int]) -> None:
+    """Zero the masked batch lanes of every leaf in place.
+
+    ``slot_mask`` is a [B] bool tensor on the state's device; the zeroing
+    is one masked fill per leaf, so it never waits for the device. Leaves
+    whose axis is ``-1`` (the shared page pool) are left untouched.
+    """
+    for name, leaf in state.items():
+        axis = batch_axes[name]
+        if axis < 0:
+            continue
+        shape = [1] * leaf.dim()
+        shape[axis] = slot_mask.shape[0]
+        leaf.masked_fill_(slot_mask.view(shape), 0)
 
 
 def build_model(cfg: ArchConfig, device: DeviceLike = None,

@@ -7,7 +7,11 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from repro_torch.layers.attention import decode_self_attention, self_attention
+from repro_torch.layers.attention import (
+    decode_self_attention,
+    paged_decode_self_attention,
+    self_attention,
+)
 from repro_torch.layers.linear import quantize_weight
 from repro_torch.layers.mlp import swiglu
 from repro_torch.layers.norm import rmsnorm
@@ -88,13 +92,20 @@ class AttnBlock(nn.Module):
 
     def decode(self, x: torch.Tensor, cache_k: torch.Tensor,
                cache_v: torch.Tensor, pos: int, cfg: ArchConfig, *,
-               window_start: Optional[torch.Tensor] = None):
-        """One decode token; writes this layer's caches in place."""
+               window_start: Optional[torch.Tensor] = None, pages=None):
+        """One decode token; writes this layer's caches in place. With
+        ``pages`` (a ``models.base.PageView``) the caches are this layer's
+        page pool [P, ps, KV, hd] and ``pos``/``window_start`` are unused:
+        each slot indexes and rotates at its own local position."""
         h = rmsnorm(self.ln1, x)
-        h, ck, cv = decode_self_attention(
-            self.attn, h, cache_k, cache_v, pos,
-            n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
-            rope_theta=cfg.rope_theta, window_start=window_start,
-        )
+        heads = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv,
+                     head_dim=cfg.head_dim, rope_theta=cfg.rope_theta)
+        if pages is not None:
+            h, ck, cv = paged_decode_self_attention(
+                self.attn, h, cache_k, cache_v, pages, **heads)
+        else:
+            h, ck, cv = decode_self_attention(
+                self.attn, h, cache_k, cache_v, pos,
+                window_start=window_start, **heads)
         x = x + h
         return x + self.ffn_part(rmsnorm(self.ln2, x), cfg), ck, cv

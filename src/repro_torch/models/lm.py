@@ -6,7 +6,7 @@ blocks are an ``nn.ModuleList`` and the scan is a loop over it.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -15,7 +15,13 @@ from repro_torch.core.emit import DeviceLike, resolve_device
 from repro_torch.layers.embedding import embed
 from repro_torch.layers.linear import matmul_f32, quantize_weight
 from repro_torch.layers.norm import rmsnorm
-from repro_torch.models.base import HEAD_SHIFTS, ArchConfig, decode_head_logits
+from repro_torch.models.base import (
+    HEAD_SHIFTS,
+    PAGED_STATE_KEYS,
+    ArchConfig,
+    PageView,
+    decode_head_logits,
+)
 from repro_torch.models.blocks import AttnBlock, norm_params
 
 
@@ -109,31 +115,50 @@ class DecoderLM(nn.Module):
 
     # -- decode ---------------------------------------------------------------
 
-    def decode_state(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
+    def decode_state(self, batch: int, max_len: int,
+                     paged: Optional[Tuple[int, int]] = None,
+                     only: Optional[str] = None) -> Dict[str, torch.Tensor]:
         """A zeroed bf16 KV cache ``{"cache_k", "cache_v"}``, each
         [L, B, max_len, KV, hd] on the model's device (the reference's
-        ``decode_state_specs``, allocated)."""
+        ``decode_state_specs``, allocated).
+
+        With ``paged=(page_count, page_size)`` the leaves are the shared
+        page pool [L, page_count, page_size, KV, hd] instead. ``only``
+        picks one half of a paged state: ``"pool"`` the pool leaves,
+        ``"dense"`` the per-slot remainder (empty for this model, whose
+        only state is the KV cache)."""
         cfg = self.cfg
         shape = (cfg.n_layers, batch, max_len, cfg.n_kv, cfg.head_dim)
+        if paged is not None:
+            page_count, page_size = paged
+            shape = (cfg.n_layers, page_count, page_size, cfg.n_kv,
+                     cfg.head_dim)
+        names = PAGED_STATE_KEYS
+        if paged is not None and only == "dense":
+            names = ()
         return {name: torch.zeros(shape, dtype=torch.bfloat16,
                                   device=self.device)
-                for name in ("cache_k", "cache_v")}
+                for name in names}
 
     @torch.inference_mode()
     def decode_step(self, state: Dict[str, torch.Tensor],
                     tokens: torch.Tensor, pos: int, *,
-                    window_start: Optional[torch.Tensor] = None):
+                    window_start: Optional[torch.Tensor] = None,
+                    pages: Optional[PageView] = None):
         """One token for every sequence: tokens [B] int, ``pos`` the
         position of the new token. Writes the KV cache of ``state`` in
         place (the reference returned a new state) and returns
         ``(logits [B, V] fp32, state)``. ``window_start`` ([B], optional)
         limits each sequence's attention to cache positions at or after
-        its own start."""
+        its own start. With ``pages`` the KV leaves are the shared page
+        pool and each slot indexes and rotates at its own local position
+        (``pos`` and ``window_start`` are then unused)."""
         cfg = self.cfg
         x = embed(self.embed, tokens[:, None])
         for i, blk in enumerate(self.blocks):
             x, _, _ = blk.decode(x, state["cache_k"][i], state["cache_v"][i],
-                                 pos, cfg, window_start=window_start)
+                                 pos, cfg, window_start=window_start,
+                                 pages=pages)
         x = rmsnorm(self.ln_f, x)
         head_q = self.quantized_head() if cfg.quantized else None
         return decode_head_logits(self.head["w"], x, cfg, head_q), state

@@ -155,6 +155,13 @@ def compile_pass(ir: PlanIR) -> PlanIR:
                                   "seq_len": "per-bucket"})
         cat["prefill"] = {"batch": "per-bucket", "seq_len": "per-bucket",
                           "note": "prefill->decode handoff loop"}
+        cat["masked_decode"] = {
+            "batch": "per-bucket", "seq_len": "per-bucket",
+            "steps_per_dispatch": "per-scheduler",
+            "note": "slot-masked continuous-batching micro-run of k steps "
+                    "(cache-keyed by k); paged=(page_count, page_size) "
+                    "for the shared page pool joins the key",
+        }
     ir.executables = cat
     ir.record("Compile", kinds=sorted(cat), cache="serve.ExecutableCache")
     return ir

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.core.emit import DeviceLike
 from repro_torch.launch.steps import (
+    make_masked_decode_step,
     make_prefill_decode_step,
     make_prefill_step,
     make_serve_step,
@@ -95,9 +96,16 @@ class ExecutionPlan:
         self.calibrate()
         return model
 
-    def fresh_decode_state(self, batch: int, max_len: int):
-        """A zeroed decode state for one bucket shape."""
-        return self.model.decode_state(batch, max_len)
+    def fresh_decode_state(self, batch: int, max_len: int, paged=None,
+                           only: Optional[str] = None):
+        """A zeroed decode state for one bucket shape.
+
+        With ``paged=(page_count, page_size)`` the KV leaves come in the
+        shared-pool layout [L, page_count, page_size, KV, hd]; ``only``
+        restricts a paged build to one half: ``"pool"`` the pool leaves
+        (bucket-independent: the StatePool builds them once), ``"dense"``
+        the per-slot remainder."""
+        return self.model.decode_state(batch, max_len, paged=paged, only=only)
 
     # -- quantization calibration ---------------------------------------------
 
@@ -131,12 +139,13 @@ class ExecutionPlan:
     # -- executables ----------------------------------------------------------
 
     def _key(self, kind: str, batch: int, max_len: int,
-             prefill_len: int = 0) -> CacheKey:
+             prefill_len: int = 0, steps: int = 1, paged=()) -> CacheKey:
         return CacheKey(
             arch=self.cfg.name, kind=kind, batch=batch, max_len=max_len,
             prefill_len=prefill_len, mode=self.mode,
             mesh_axes=CacheKey.device_signature(self.device),
             quantized=self.cfg.quantized, qsig=self._qsig(),
+            steps=steps, paged=tuple(paged),
         )
 
     def executable(self, kind: Optional[str] = None) -> CachedExecutable:
@@ -162,10 +171,39 @@ class ExecutionPlan:
         return self.cache.get_or_build(key, builders[kind])
 
     def serve_executable(self, kind: str, *, batch: int, max_len: int,
-                         prefill_len: int = 0) -> CachedExecutable:
+                         prefill_len: int = 0, steps_per_dispatch: int = 1,
+                         paged=None, spec=None) -> CachedExecutable:
         """A bucketed serving step: ``kind`` is "decode" (one token against
-        resident state) or "prefill" (the prefill->decode handoff loop
-        over a prompt block padded to ``prefill_len``)."""
+        resident state), "prefill" (the prefill->decode handoff loop over a
+        prompt block padded to ``prefill_len``) or "masked_decode" (the
+        slot-masked continuous-batching micro-run of ``steps_per_dispatch``
+        steps; one step per (bucket, k), keyed apart in the cache).
+        ``paged=(page_count, page_size)`` (masked_decode only) swaps the
+        dense KV slabs for the shared page pool plus a page-table input.
+        ``spec`` (speculative lanes) raises ``NotImplementedError``."""
+        if steps_per_dispatch < 1:
+            raise ValueError(
+                f"steps_per_dispatch must be >= 1, got {steps_per_dispatch}")
+        if steps_per_dispatch > 1 and kind != "masked_decode":
+            raise ValueError(
+                "steps_per_dispatch only applies to masked_decode "
+                f"executables, not {kind!r}")
+        if paged is not None:
+            if kind != "masked_decode":
+                raise ValueError(
+                    "paged KV only applies to masked_decode executables, "
+                    f"not {kind!r}")
+            page_count, page_size = paged
+            if page_size < 1 or page_count < 1:
+                raise ValueError(f"bad paged geometry {paged!r}")
+            if max_len % page_size:
+                raise ValueError(
+                    f"max_len {max_len} must be a multiple of page_size "
+                    f"{page_size}")
+        if spec is not None:
+            from repro_torch.serve.validation import SPEC_NOT_PORTED
+
+            raise NotImplementedError(SPEC_NOT_PORTED)
         if kind == "decode":
             shape = ShapeSpec(f"b{batch}xl{max_len}", max_len, batch,
                               "decode")
@@ -174,12 +212,14 @@ class ExecutionPlan:
             build = lambda: make_prefill_decode_step(  # noqa: E731
                 self.cfg, batch, prefill_len, max_len)
         elif kind == "masked_decode":
-            raise NotImplementedError(
-                "the masked continuous-batching step is not ported yet "
-                "(ROADMAP Queue 1 item 11)")
+            build = lambda: make_masked_decode_step(  # noqa: E731
+                self.cfg, batch, max_len,
+                steps_per_dispatch=steps_per_dispatch, paged=paged)
         else:
             raise ValueError(f"unknown serve executable kind {kind!r}")
-        key = self._key(kind, batch, max_len, prefill_len)
+        key = self._key(kind, batch, max_len, prefill_len,
+                        steps=steps_per_dispatch,
+                        paged=paged if paged is not None else ())
         self._built_any = True
         return self.cache.get_or_build(key, build)
 

@@ -1,4 +1,5 @@
-"""Request batcher: shape buckets, cached steps, prefill->decode handoff.
+"""Request batcher: shape buckets, cached steps, fifo groups or continuous
+slot reuse.
 
 The batcher quantizes every request group onto a small closed set of
 declared shape buckets:
@@ -9,17 +10,20 @@ declared shape buckets:
 * the prompt block is padded to a power-of-two ``prefill_len`` (>= 8), so
   each bucket owns at most log2(max_len) prefill steps.
 
-A dispatch runs two cached steps per group: one
+``schedule="fifo"`` (the default) runs two cached steps per group: one
 ``make_prefill_decode_step`` loop that teacher-forces prompts straight
 into the resident KV cache while already generating for short sequences,
 and one ``make_serve_step`` single-token step looped for the remaining
-tokens, both from the plan's :class:`ExecutableCache` and fed from the
-per-bucket :class:`StatePool`. After warmup a dispatch performs zero new
-builds; the cache counters show it.
+tokens. ``schedule="continuous"`` hands the queue to the
+:class:`~repro_torch.serve.scheduler.ContinuousScheduler`, which refills
+freed slots INSIDE an in-flight dispatch over one
+``make_masked_decode_step`` per (bucket, ``steps_per_dispatch``), with
+admission policies and optionally the paged KV pool (``paged=``). Both
+take their steps from the plan's :class:`ExecutableCache` and their state
+from the :class:`StatePool`; after warm-up a dispatch builds nothing new,
+and the cache counters show it.
 
-Only this fixed-group ``schedule="fifo"`` path is ported. The continuous
-scheduler, paged KV, speculative lanes and admission policies raise
-``NotImplementedError`` (ROADMAP Queue 1 item 11).
+Speculative lanes raise ``NotImplementedError`` (the next slice).
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import collections
 import dataclasses
 import math
 import time
-from typing import Deque, Dict, List, Optional, Sequence
+from typing import Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,7 +43,7 @@ from repro_torch.serve.state_pool import StatePool
 
 _MIN_PREFILL = 8
 _LATENCY_WINDOW = 4096     # p50/p99 over the most recent N requests
-_NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item 11: serve modules)"
+_DEFAULT_PAGE_SIZE = 16
 
 
 def _pow2ceil(n: int) -> int:
@@ -59,11 +63,21 @@ def quantile(vals: Sequence[float], p: float) -> float:
 @dataclasses.dataclass
 class DecodeRequest:
     """One sequence to continue: prompt token ids + how many to generate.
-    (The reference's admission-policy fields wait for its scheduler.)"""
+
+    The scheduling fields are read by the continuous scheduler's admission
+    policy (``repro_torch.serve.policy``) and ignored everywhere else:
+    ``priority`` is the strict-priority class (0 = most urgent), ``tenant``
+    the fairness bucket inside a class, and ``deadline`` an absolute time
+    in the scheduler's clock domain (global steps by default, wall-clock
+    seconds under the async server) by which the last token must be out.
+    """
 
     request_id: str
     prompt: Sequence[int]
     max_new_tokens: int = 8
+    priority: int = 0
+    tenant: str = "default"
+    deadline: Optional[float] = None
 
     def __post_init__(self):
         self.prompt = [int(t) for t in self.prompt]
@@ -135,6 +149,17 @@ class BucketPolicy:
             f"{self.buckets[-1].max_len}")
 
 
+def auto_paged(policy: BucketPolicy,
+               page_size: int = _DEFAULT_PAGE_SIZE) -> Tuple[int, int]:
+    """A ``(page_count, page_size)`` geometry under which paged mode is
+    never less capable than dense: pages to back every slot of every
+    bucket at full length, plus one pinned scratch page per lane of the
+    widest bucket."""
+    pages = sum(b.batch * (b.max_len // page_size) for b in policy.buckets)
+    scratch = max(b.batch for b in policy.buckets)
+    return (pages + scratch, page_size)
+
+
 @dataclasses.dataclass
 class BucketMetrics:
     dispatches: int = 0
@@ -151,6 +176,11 @@ class BucketMetrics:
         default_factory=lambda: collections.deque(maxlen=_LATENCY_WINDOW))
     slot_idle: Deque[int] = dataclasses.field(
         default_factory=lambda: collections.deque(maxlen=_LATENCY_WINDOW))
+    # paged-KV gauges: the shared PageAllocator after the bucket's latest
+    # dispatch (all zero in dense mode)
+    pages_in_use: int = 0
+    peak_pages: int = 0
+    prefix_hits: int = 0
 
     def summary(self) -> Dict[str, float]:
         lat = list(self.latencies)
@@ -173,6 +203,9 @@ class BucketMetrics:
             if self.slot_steps else 0.0,
             "p50_slot_idle_steps": quantile(idle, 0.50),
             "p99_slot_idle_steps": quantile(idle, 0.99),
+            "pages_in_use": self.pages_in_use,
+            "peak_pages": self.peak_pages,
+            "prefix_hits": self.prefix_hits,
         }
 
 
@@ -184,31 +217,80 @@ class ServeBatcher:
     the quantization decisions and every step; the batcher only groups
     requests into buckets and drives the dispatch loop. A plan built with
     ``quantized=True`` routes the decode LM head and the MLP
-    down-projection through the qmatmul kernel.
+    down-projection through the qmatmul kernel, on every step of either
+    schedule.
+
+    ``paged`` (continuous only): ``True`` for :func:`auto_paged`, an int
+    for ``auto_paged`` with that page size, ``(page_count, page_size)``
+    as given, ``False``/``None`` for dense KV.
     """
 
     def __init__(self, plan, *, policy: Optional[BucketPolicy] = None,
                  schedule: str = "fifo", steps_per_dispatch: int = 1,
                  admission=None, paged=None, speculative: int = 0,
                  draft: Optional[str] = None):
-        if schedule == "continuous":
-            raise NotImplementedError(f"schedule='continuous' {_NOT_PORTED}")
-        if schedule != "fifo":
+        if schedule not in ("fifo", "continuous"):
             raise ValueError(
                 f"schedule must be 'fifo' or 'continuous', got {schedule!r}")
-        for name, val in (("steps_per_dispatch > 1", steps_per_dispatch > 1),
-                          ("admission policies", admission is not None),
-                          ("paged KV", paged not in (None, False)),
-                          ("speculative decoding", bool(speculative)),
-                          ("draft models", draft is not None)):
-            if val:
-                raise NotImplementedError(f"{name} {_NOT_PORTED}")
+        if steps_per_dispatch < 1:
+            raise ValueError(
+                f"steps_per_dispatch must be >= 1, got {steps_per_dispatch}")
+        if steps_per_dispatch > 1 and schedule != "continuous":
+            raise ValueError(
+                "steps_per_dispatch > 1 needs schedule='continuous' — the "
+                "fifo path amortizes prompts through its prefill loop")
+        if admission is not None and schedule != "continuous":
+            raise ValueError(
+                "admission policies need schedule='continuous' — the "
+                "fixed-group fifo path has no boundary seam to apply them")
         self.plan = plan
+        self.schedule = schedule
+        self.steps_per_dispatch = steps_per_dispatch
         self.policy = policy or BucketPolicy.debug()
-        self.pool = StatePool(plan)
+        # bool is an int subclass: False must mean dense, not page size 0
+        if paged is True:
+            paged = auto_paged(self.policy)
+        elif paged is False:
+            paged = None
+        elif isinstance(paged, int):
+            paged = auto_paged(self.policy, page_size=paged)
+        elif paged is not None:
+            paged = tuple(paged)
+        if paged is not None:
+            if schedule != "continuous":
+                raise ValueError(
+                    "paged KV needs schedule='continuous' — only the "
+                    "masked-decode path threads page tables")
+            for b in self.policy.buckets:
+                if b.max_len % paged[1]:
+                    raise ValueError(
+                        f"bucket {b.label}: max_len must be a multiple of "
+                        f"page_size={paged[1]}")
+        self.paged = paged
+        from repro_torch.serve.validation import resolve_speculative
+
+        resolve_speculative(speculative, draft, schedule=schedule,
+                            steps_per_dispatch=steps_per_dispatch,
+                            n_layers=plan.cfg.n_layers)
+        self.pool = StatePool(plan, paged=paged)
         self.metrics: Dict[str, BucketMetrics] = {}
         self._pending: Deque[DecodeRequest] = collections.deque()
         self._pending_ids: set = set()
+        # ids the admission policy shed during the last run() (deadline
+        # misses): completed zero times, ids reusable
+        self.last_shed: set = set()
+        self._scheduler = None
+        if schedule == "continuous":
+            from repro_torch.serve.scheduler import ContinuousScheduler
+
+            self._scheduler = ContinuousScheduler(
+                plan, self.policy, self.pool,
+                steps_per_dispatch=steps_per_dispatch, admission=admission)
+
+    @property
+    def scheduler(self):
+        """The ContinuousScheduler (None under schedule="fifo")."""
+        return self._scheduler
 
     # plan views
     @property
@@ -247,17 +329,58 @@ class ServeBatcher:
         self._pending.append(request)
         return request.request_id
 
+    def cancel(self, request_id: str) -> bool:
+        """Cancel a queued or in-flight request; returns True if known.
+
+        A queued request leaves the queue at once. An in-flight request
+        (``schedule="continuous"`` only) is marked for the scheduler, which
+        frees its slot and wipes its state lanes at the next micro-run
+        boundary; it never appears in the results. The id is reusable as
+        soon as this returns True. Under ``schedule="fifo"`` a request
+        inside a dispatch group cannot be cancelled (returns False).
+
+        Call from the dispatching thread only: between ``run()`` calls or
+        from the scheduler's ``on_boundary`` hook.
+        """
+        if request_id not in self._pending_ids:
+            return False
+        for i, req in enumerate(self._pending):
+            if req.request_id == request_id:
+                del self._pending[i]
+                self._pending_ids.discard(request_id)
+                return True
+        if self._scheduler is not None:
+            self._scheduler.cancel(request_id)
+            self._pending_ids.discard(request_id)
+            return True
+        return False
+
+    def warmup(self, bucket: Bucket, prompt_len: int = 1) -> None:
+        """Build a bucket's steps ahead of traffic."""
+        if self.schedule == "continuous":
+            self._executable("masked_decode", bucket, 0)
+        else:
+            self._executable("prefill", bucket,
+                             self._prefill_len(prompt_len))
+            self._executable("decode", bucket, 0)
+
     # -- dispatch -------------------------------------------------------------
 
     @torch.inference_mode()
     def run(self) -> Dict[str, RequestResult]:
-        """Drain the queue: group -> dispatch until empty."""
+        """Drain the queue: group -> dispatch until empty, or hand the
+        whole queue to the continuous scheduler."""
         model = self.plan.model          # raises when nothing is loaded
         results: Dict[str, RequestResult] = {}
-        while self._pending:
-            group, bucket = self._form_group()
-            for res in self._dispatch(model, group, bucket):
-                results[res.request_id] = res
+        if self._scheduler is not None:
+            results = self._scheduler.run(self._pending, model, self.metrics)
+            self.last_shed = self._scheduler.drain_shed()
+            self._pending_ids.difference_update(self.last_shed)
+        else:
+            while self._pending:
+                group, bucket = self._form_group()
+                for res in self._dispatch(model, group, bucket):
+                    results[res.request_id] = res
         self._pending_ids.difference_update(results)
         return results
 
@@ -282,9 +405,14 @@ class ServeBatcher:
 
     def _executable(self, kind: str, bucket: Bucket,
                     prefill_len: int) -> CachedExecutable:
+        kw = {}
+        if kind == "masked_decode":
+            kw["steps_per_dispatch"] = self.steps_per_dispatch
+            if self.paged is not None:
+                kw["paged"] = self.paged
         return self.plan.serve_executable(
             kind, batch=bucket.batch, max_len=bucket.max_len,
-            prefill_len=prefill_len)
+            prefill_len=prefill_len, **kw)
 
     def _dispatch(self, model, group: List[DecodeRequest],
                   bucket: Bucket) -> List[RequestResult]:
@@ -360,8 +488,13 @@ class ServeBatcher:
     # -- observability --------------------------------------------------------
 
     def stats(self) -> Dict[str, object]:
-        return {
+        out = {
             "cache": self.cache.stats(),
             "pool": self.pool.stats(),
             "buckets": {k: m.summary() for k, m in self.metrics.items()},
         }
+        if self._scheduler is not None:
+            out["scheduler"] = self._scheduler.stats()
+        if self.pool.allocator is not None:
+            out["paged"] = self.pool.allocator.stats()
+        return out

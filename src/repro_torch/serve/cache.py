@@ -28,13 +28,14 @@ class CacheKey:
     """Identity of one step function.
 
     The fields are the reference's. ``mesh_axes`` holds the device
-    signature (``(("cuda", 0),)``); ``stages`` (pipeline stages),
-    ``steps`` (micro-run length), ``paged`` and ``spec`` keep their
+    signature (``(("cuda", 0),)``); ``steps`` is the masked micro-run's
+    length and ``paged`` its ``(page_count, page_size)``; ``stages``
+    (pipeline stages) and ``spec`` (speculative lanes) keep their
     reference defaults until the port carries those features.
     """
 
     arch: str
-    kind: str                      # "decode" | "prefill"
+    kind: str                      # "decode" | "prefill" | "masked_decode"
     batch: int
     max_len: int
     prefill_len: int

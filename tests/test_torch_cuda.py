@@ -202,3 +202,99 @@ def test_reduced_forward_launches_flash_once_per_layer(cuda):
     assert flash_ops.launches == before + plan.cfg.n_layers
     assert logits.shape == (2, 40, plan.cfg.vocab)
     assert torch.isfinite(logits).all()
+
+
+# ---------------------------------------------------------------------------
+# the continuous serve path on the card
+# ---------------------------------------------------------------------------
+
+# the LM shapes at the continuous bucket's batch: (K, N, x dtype, w dtype)
+_LM_SHAPES = [(4096, 64000, "int8", "int8"), (11008, 4096, "int16", "int8")]
+
+
+@pytest.mark.parametrize("K,N,dt_a,dt_b", _LM_SHAPES)
+@pytest.mark.parametrize("split", [False, True], ids=["one", "split"])
+def test_qmatmul_m8_lm_shapes_equal_plain(cuda, K, N, dt_a, dt_b, split):
+    """M = 8 (the continuous bucket's batch) at both LM shapes, over the
+    full int16 range, with one split of K and with several."""
+    M = 8
+    rng = np.random.default_rng(K + N)
+    lo = -(2 ** 15) if dt_a == "int16" else -128
+    x = torch.from_numpy(rng.integers(lo, -lo, (M, K)).astype(dt_a)).to(cuda)
+    w = _rand(rng, (K, N), dt_b, cuda)
+    auto = ops.plan(M, K, N, torch.cuda.get_device_properties(0)
+                    .multi_processor_count)
+    p = (ops.Plan(auto.block_m, 4, K // 4) if split
+         else ops.Plan(auto.block_m, 1, K))
+    for shift in (2, 7, 10):
+        kw = dict(shift=shift, out_dtype="int16")
+        assert torch.equal(ops.qlinear_planned(x, w, None, p, **kw),
+                           qlinear_ref(x, w, None, **kw))
+
+
+_TRACE = [("p0", [63, 51, 50], 7), ("p1", [33, 17, 32], 5),
+          ("p2", [63, 1], 2), ("p3", [30, 52], 4), ("p4", [39, 53], 7),
+          ("p5", [55, 44, 23], 7)]
+# the card's cuBLAS sums bf16 products in another order than the CPU's BLAS;
+# streams are held equal up to the first step whose CPU gap is under this
+_CARD_MIN_GAP = 0.05
+
+
+def _continuous(device, quantized, paged, state_dict):
+    from repro_torch.models import build_model
+    from repro_torch.plan import build_plan
+    from repro_torch.serve import DecodeRequest
+
+    plan = build_plan("yi-6b", None, debug=True, quantized=quantized,
+                      config_overrides=dict(n_layers=2, vocab=64),
+                      device=device)
+    model = build_model(plan.cfg, device=device)
+    model.load_state_dict(state_dict)
+    plan.load_params(model)
+    b = plan.make_batcher(schedule="continuous", steps_per_dispatch=4,
+                          paged=paged)
+    for rid, p, n in _TRACE:
+        b.submit(DecodeRequest(rid, p, max_new_tokens=n))
+    return b, {r: v.tokens for r, v in b.run().items()}
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("quantized", [False, True],
+                         ids=["float", "quantized"])
+def test_continuous_serving_on_card_equals_cpu(cuda, quantized, paged):
+    """The reduced config's continuous run (k = 4) on the card gives its CPU
+    run's tokens on the parity trace, and launches qmatmul 3 x k times per
+    micro-run when quantized."""
+    from repro_torch.models import build_model
+    from repro_torch.configs import reduced_config
+
+    cfg = reduced_config("yi-6b").with_(n_layers=2, vocab=64)
+    weights = build_model(cfg, device="cpu").init_params(0).state_dict()
+    cpu_b, want = _continuous("cpu", quantized, paged, weights)
+    # the CPU run's own gaps: a greedy loop from position 0 per request
+    model = cpu_b.plan.model
+    before = ops.launches
+    card_b, got = _continuous("cuda", quantized, paged, weights)
+    torch.cuda.synchronize()
+    runs = card_b.scheduler.stats()["micro_runs"]
+    assert ops.launches - before == (3 * 4 * runs if quantized else 0)
+    compared = 0
+    for rid, prompt, n in _TRACE:
+        state = model.decode_state(1, 64)
+        tok, gaps = None, []
+        for i in range(len(prompt) + n - 1):
+            t = torch.tensor([prompt[i] if i < len(prompt) else tok],
+                             dtype=torch.int32)
+            logits, state = model.decode_step(state, t, i)
+            top = torch.topk(logits[0], 2)
+            tok = int(top.indices[0])
+            if i >= len(prompt) - 1:
+                gaps.append(float(top.values[0] - top.values[1]))
+        m = next((i for i, g in enumerate(gaps) if g < _CARD_MIN_GAP), n)
+        assert len(got[rid]) == n
+        assert got[rid][:m] == want[rid][:m], (rid, got[rid], want[rid])
+        compared += m
+    assert compared >= 20
+    if paged:
+        s = card_b.stats()["paged"]
+        assert s["pages_in_use"] == s["scratch_pages"] + s["prefix_entries"]

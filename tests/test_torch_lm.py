@@ -325,13 +325,20 @@ def test_only_the_dense_yi_6b_is_ported(tcfg):
 
 
 def test_serving_features_not_ported_raise():
+    """Only the speculative lanes are left: they raise, naming the slice
+    that ports them; continuous, paged and admission policies build."""
     plan = build_plan("yi-6b", None, debug=True, device="cpu")
-    for kw in (dict(schedule="continuous"), dict(paged=True),
-               dict(speculative=4), dict(admission=object())):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-            plan.make_batcher(**kw)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        plan.serve_executable("masked_decode", batch=2, max_len=64)
+    with pytest.raises(NotImplementedError, match="speculative slice"):
+        plan.make_batcher(schedule="continuous", steps_per_dispatch=4,
+                          speculative=4)
+    with pytest.raises(NotImplementedError, match="speculative slice"):
+        plan.serve_executable("masked_decode", batch=2, max_len=64,
+                              spec=(1, 1))
+    for kw in (dict(schedule="continuous"),
+               dict(schedule="continuous", paged=True),
+               dict(schedule="continuous", admission=object())):
+        assert plan.make_batcher(**kw).scheduler is not None
+    assert plan.serve_executable("masked_decode", batch=2, max_len=64).fn
 
 
 def test_bridge_rejects_a_malformed_tree(tcfg, arrays):
@@ -367,7 +374,7 @@ def test_plan_records_its_passes():
     assert plan.ir.pass_names() == ["ResolveDevice", "Quantize", "Compile"]
     d = plan.describe()
     assert d["quant"]["mlp"] and d["device"] == "cpu"
-    assert sorted(d["executables"]) == ["decode", "prefill"]
+    assert sorted(d["executables"]) == ["decode", "masked_decode", "prefill"]
     assert isinstance(plan.cfg, ArchConfig)
 
 
@@ -393,8 +400,9 @@ def test_serve_cli_on_the_cpu(capsys):
     main(["--arch", "yi-6b", "--debug", "--tokens", "2", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "hits=2" in out and "builds=2" in out
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        main(["--arch", "yi-6b", "--debug", "--device", "cpu", "--stream"])
+    with pytest.raises(NotImplementedError, match="speculative slice"):
+        main(["--arch", "yi-6b", "--debug", "--device", "cpu", "--schedule",
+              "continuous", "--speculative", "1"])
 
 
 def test_state_pool_zeroes_on_reuse_and_wipes_slots(tmodel):
