@@ -13,8 +13,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    bias and ReLU on and off), the paper models' GEMM shapes, a forced
    int32-wraparound case, decode-sized M (1, 4, 16, 17) at K = 70 and
    11008 for all three operand pairs with split-K on and off, and the two
-   LM shapes at M = 4 and at M = 8 (phase 9's batch) with split-K on and
-   off.
+   LM shapes at M = 4, at M = 8 (phase 9's batch) and at M = 32 (phase
+   10's verify, 8 slots x 4 positions) with split-K on and off.
 3. The main path: compile the five paper models (Table III/V) at their
    published widths with ``build_paper_model(name, device="cuda")`` and
    answer three ``predict(x, "aie")`` requests per model at the Table III
@@ -74,6 +74,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    micro-runs, refills, the prefix-skip share, ms per micro-run, and the
    device time split, largest device entries and idle share of one
    micro-run in steady decode, paged and dense.
+10. Speculative serving at full width, quantized, on the same model and
+   plan: bucket 8 x 512, ``speculative=4`` with the default draft (the
+   first 16 layers), phase 9's first wave of traffic once through a paged
+   batcher (264 pages of 16 tokens plus the draft's twin pool) and once
+   through a dense batcher behind ``AsyncServeServer`` (concurrent
+   ``generate`` calls). Each run is counted from zero: qmatmul must launch
+   4 x (16 + 1) + 33 = 101 times per micro-run (the draft's down-
+   projections and head at M = 8, the verify's at M = 32) and flash never;
+   there must be verifies, accepted <= drafted tokens and refills; the
+   streams are held to the plain greedy loop as in phase 9; after the
+   paged run only scratch and prefix pages are in use. Prints tokens/s,
+   micro-runs, the speculative counters, the async server's p50/p99 time
+   to the first token and outcomes, and one speculative micro-run's host
+   time and device split, paged and dense.
 
 The last two lines are the ``kernels`` JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -120,11 +134,14 @@ REQUESTS = [("token_mlp_s16", 512), ("channel_mlp_s16", 196),
 CALLS = 3
 
 # qmatmul on the LM path (M, K, N, x dtype, w dtype, out dtype): the int8
-# LM head of a batch-4 decode step and its a16w8 MLP down-projection, and
-# the same at batch 8 (the continuous bucket of phase 9)
+# LM head of a batch-4 decode step and its a16w8 MLP down-projection, the
+# same at batch 8 (the continuous bucket of phase 9 and phase 10's draft)
+# and at 8 slots x 4 positions (phase 10's verify)
 LM_QMATMUL = [(4, 4096, 64000, "int8", "int8", "int16"),
               (4, 11008, 4096, "int16", "int8", "int16")]
 LM_QMATMUL_M8 = [(8,) + s[1:] for s in LM_QMATMUL]
+LM_QMATMUL_M32 = [(32,) + s[1:] for s in LM_QMATMUL]
+LM_SHAPES = LM_QMATMUL + LM_QMATMUL_M8 + LM_QMATMUL_M32
 
 # decode-sized M for the 16-row tile and split-K: (M, K, N)
 SMALL_M_SHAPES = [(M, K, 300) for M in (1, 4, 16, 17) for K in (70, 11008)]
@@ -169,6 +186,8 @@ SERVE_BATCH, SERVE_MAX_LEN, SERVE_TOKENS, SERVE_WAVES = 4, 256, 8, 2
 CONT_BATCH, CONT_MAX_LEN, CONT_K = 8, 512, 4
 CONT_WAVES, CONT_REQUESTS, CONT_SYSTEM = 2, 12, 40
 CONT_SEED, CONT_MIN_GAP = 900, 0.1
+# phase 10: speculative lanes, k = phase 9's, the default draft depth
+SPEC_K = CONT_K
 
 
 def _rand(rng, shape, dtype):
@@ -382,13 +401,13 @@ def check_small_m(chk, dev, sms):
 
 
 def check_lm_shapes(chk, dev, sms):
-    """qmatmul at the LM shapes with the path's operand types, at M = 4 and
-    8, each under its own plan, with one split and with four; int16 x over
-    both a moderate and the full range (the int32 sum then wraps). Returns
-    the number of split-K plans run."""
+    """qmatmul at the LM shapes with the path's operand types, at M = 4, 8
+    and 32, each under its own plan, with one split and with four; int16 x
+    over both a moderate and the full range (the int32 sum then wraps).
+    Returns the number of split-K plans run."""
     rng = np.random.default_rng(5)
     n_split = 0
-    for (M, K, N, dx, dw, out) in LM_QMATMUL + LM_QMATMUL_M8:
+    for (M, K, N, dx, dw, out) in LM_SHAPES:
         w = torch.from_numpy(_rand(rng, (K, N), dw)).to(dev)
         xs = [torch.from_numpy(_rand(rng, (M, K), dx)).to(dev)]
         if dx == "int16":
@@ -807,43 +826,181 @@ def run_continuous(dev, model, plan, qmatmul_ops, flash_ops):
     row = serve_wave(dense, waves[0], loops[0], "dense wave 0")
     out["launches"]["dense"] = row["launches"]
 
-    # one micro-run in steady decode, paged and dense: every lane active
-    # at positions 100-103, state resident
-    lanes = dict(
-        feed=torch.full((CONT_K, CONT_BATCH), -1, dtype=torch.int32,
-                        device=dev),
-        start=torch.zeros((CONT_K, CONT_BATCH), dtype=torch.int32, device=dev),
-        active=torch.ones((CONT_K, CONT_BATCH), dtype=torch.bool, device=dev),
-        fresh=torch.zeros((CONT_K, CONT_BATCH), dtype=torch.bool, device=dev))
-    prev = torch.ones(CONT_BATCH, dtype=torch.int32, device=dev)
-    n_tables = CONT_MAX_LEN // paged.paged[1]
-    table = (torch.arange(CONT_BATCH * n_tables, dtype=torch.int32,
-                          device=dev).view(CONT_BATCH, n_tables))
-    out["micro_run"] = {}
-    for label, batcher, extra in (("paged", paged, (table,)),
-                                  ("dense", dense, ())):
-        exe = plan.serve_executable(
-            "masked_decode", batch=CONT_BATCH, max_len=CONT_MAX_LEN,
-            steps_per_dispatch=CONT_K,
-            **({"paged": batcher.paged} if batcher.paged else {}))
-        state = batcher.pool.acquire(CONT_BATCH, CONT_MAX_LEN)
+    out["micro_run"] = {label: time_micro_run(dev, plan, model, batcher)
+                        for label, batcher in (("paged", paged),
+                                               ("dense", dense))}
+    out["waves"], out["loops"] = waves, loops
+    return out
 
-        def micro_run():
-            exe.fn(model, state, lanes["feed"], prev, 100, lanes["start"],
-                   lanes["active"], lanes["fresh"], *extra)
 
+def time_micro_run(dev, plan, model, batcher):
+    """One micro-run of the batcher's step in steady decode, its state
+    resident: every lane active at positions 100-103 (a speculative step
+    accepts nothing here; its work per call is the same). Host-clock
+    median of 5 calls and the device split of 2."""
+    k, B, L = CONT_K, CONT_BATCH, CONT_MAX_LEN
+    lanes = [torch.full((k, B), -1, dtype=torch.int32, device=dev),
+             torch.ones(B, dtype=torch.int32, device=dev), 100,
+             torch.zeros((k, B), dtype=torch.int32, device=dev),
+             torch.ones((k, B), dtype=torch.bool, device=dev),
+             torch.zeros((k, B), dtype=torch.bool, device=dev)]
+    kw = {}
+    if batcher.paged:
+        kw["paged"] = batcher.paged
+        n_tables = L // batcher.paged[1]
+        lanes.append(torch.arange(B * n_tables, dtype=torch.int32,
+                                  device=dev).view(B, n_tables))
+    if batcher.spec:
+        kw["spec"] = batcher.spec
+    exe = plan.serve_executable("masked_decode", batch=B, max_len=L,
+                                steps_per_dispatch=k, **kw)
+    state = batcher.pool.acquire(B, L)
+
+    def micro_run():
+        exe.fn(model, state, *lanes)
+
+    micro_run()
+    torch.cuda.synchronize()
+    lat = []
+    for _ in range(5):
+        t = time.perf_counter()
         micro_run()
         torch.cuda.synchronize()
-        lat = []
-        for _ in range(5):
-            t = time.perf_counter()
-            micro_run()
-            torch.cuda.synchronize()
-            lat.append((time.perf_counter() - t) * 1e3)
-        out["micro_run"][label] = dict(
-            median_ms=statistics.median(lat), latencies_ms=lat,
-            split=profile_split(micro_run, calls=2))
-        batcher.pool.release(CONT_BATCH, CONT_MAX_LEN, state)
+        lat.append((time.perf_counter() - t) * 1e3)
+    split = profile_split(micro_run, calls=2)
+    batcher.pool.release(B, L, state)
+    if split["qmatmul_ms"] <= 0:
+        raise AssertionError(f"profiler split found no qmatmul time in a "
+                             f"micro-run: {split}")
+    return dict(median_ms=statistics.median(lat), latencies_ms=lat,
+                split=split)
+
+
+def micro_run_line(name, mr):
+    cs = mr["split"]
+    return (f"{name}: median {mr['median_ms']:.4f} ms (host clock, 5 calls, "
+            f"all {[round(x, 4) for x in mr['latencies_ms']]}); device: "
+            f"flash {cs['flash_ms']:.4f} ms + qmatmul {cs['qmatmul_ms']:.4f} "
+            f"ms + other ops {cs['other_device_ms']:.4f} ms, idle share "
+            f"{1 - device_busy_ms(cs) / mr['median_ms']:.3f} of the median "
+            f"(profiled wall {cs['profiled_wall_ms']:.4f} ms); largest "
+            f"device entries (ms per micro-run) "
+            f"{[(k, round(v, 4)) for k, v in cs['top']]}")
+
+
+def run_speculative(dev, model, plan, qmatmul_ops, flash_ops, reqs, loop):
+    """Phase 10: speculative serving at full width, paged through the
+    batcher, then dense behind the async server."""
+    import asyncio
+
+    from repro_torch.serve import AsyncServeServer, Bucket, BucketPolicy
+
+    cfg = plan.cfg
+
+    def make(paged):
+        return plan.make_batcher(
+            policy=BucketPolicy([Bucket(CONT_MAX_LEN, CONT_BATCH)]),
+            schedule="continuous", steps_per_dispatch=SPEC_K,
+            paged=paged, speculative=SPEC_K)
+
+    paged, dense = make(True), make(None)
+    spec_k, draft = paged.spec
+    # the draft's k steps run `draft` down-projections and the head at
+    # M = batch; the verify runs every layer's and the head at M = batch k
+    per_run = spec_k * (draft + 1) + cfg.n_layers + 1
+    draft_mb = 2 * 2 * draft * paged.paged[0] * paged.paged[1] * \
+        cfg.n_kv * cfg.head_dim / 1e6
+    print(f"speculative: k={spec_k}, draft = the first {draft} of "
+          f"{cfg.n_layers} layers, draft pool twin {draft_mb:.1f} MB; "
+          f"{per_run} qmatmul launches expected per micro-run")
+    out = dict(launches={}, rows={})
+
+    def counted(label, batcher, serve):
+        torch.cuda.synchronize()
+        qmatmul_ops.launches = 0
+        flash_ops.launches = 0
+        t = time.perf_counter()
+        res, extra = serve()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches, flash = qmatmul_ops.launches, flash_ops.launches
+        st = batcher.scheduler.stats()
+        sp, runs = st["spec"], st["micro_runs"]
+        if launches != per_run * runs or runs == 0:
+            raise AssertionError(f"{label}: qmatmul launched {launches} "
+                                 f"times over {runs} micro-runs, expected "
+                                 f"{per_run} per micro-run")
+        if flash:
+            raise AssertionError(f"{label}: flash launched {flash} times")
+        if sp["verifies"] <= 0 or not 0 < sp["accepted_tokens"] <= \
+                sp["draft_tokens"]:
+            raise AssertionError(f"{label}: speculative counters {sp}")
+        if st["refills"] <= 0:
+            raise AssertionError(f"{label}: no slot was refilled")
+        compared, full = hold_to_loop(res, loop)
+        if compared == 0:
+            raise AssertionError(f"{label}: no step clears the gap rule")
+        tokens = sum(len(r.tokens) for r in res.values())
+        row = dict(label=label, wall_s=wall, tokens=tokens,
+                   tokens_per_s=tokens / wall, launches=launches,
+                   micro_runs=runs, refills=st["refills"],
+                   ms_per_micro_run=wall * 1e3 / runs, spec=sp,
+                   compared=compared, full=full, streams=len(res),
+                   cache=batcher.cache.stats(), **extra)
+        note = ""
+        if batcher.pool.allocator is not None:
+            p = batcher.pool.allocator.stats()
+            if p["pages_in_use"] != p["scratch_pages"] + p["prefix_entries"]:
+                raise AssertionError(f"{label}: pages not reclaimed: {p}")
+            row["paged"] = p
+            note = (f"; pages in use {p['pages_in_use']} == scratch "
+                    f"{p['scratch_pages']} + prefix entries "
+                    f"{p['prefix_entries']}, draft pages committed "
+                    f"{p['draft_pages_committed']}, rolled back "
+                    f"{p['draft_pages_rolled_back']}")
+        if "server" in extra:
+            sv = extra["server"]
+            note += (f"; async server: p50 TTFT {sv['p50_ttft_s']} s, p99 "
+                     f"TTFT {sv['p99_ttft_s']} s, outcomes {sv['outcomes']}")
+        print(f"speculative {label}: {len(res)} requests, {tokens} tokens "
+              f"in {wall:.4f} s = {row['tokens_per_s']:.4f} tokens/s (host "
+              f"clock); {runs} micro-runs ({row['ms_per_micro_run']:.4f} ms "
+              f"each), {st['refills']} refills; {sp['verifies']} verifies, "
+              f"{sp['accepted_tokens']}/{sp['draft_tokens']} draft tokens "
+              f"accepted ({sp['accepted_tokens_per_dispatch']} per verify), "
+              f"{sp['rollbacks']} rollbacks, {sp['continuations']} "
+              f"continuations, {sp['partial_results']} partial results; "
+              f"{launches} qmatmul launches == {per_run} x {runs}; vs plain "
+              f"loop: {compared} tokens compared, {full}/{len(res)} streams "
+              f"equal in full{note}; cache {row['cache']}")
+        return row
+
+    def through_batcher():
+        for r in reqs:
+            paged.submit(r)
+        return paged.run(), {}
+
+    def through_server():
+        async def drive():
+            async with AsyncServeServer(dense) as server:
+                got = await asyncio.gather(*[server.generate(r)
+                                             for r in reqs])
+                return {r.request_id: r for r in got}, server.stats()
+
+        res, sv = asyncio.run(drive())
+        if sv["outcomes"] != {"done": len(reqs)}:
+            raise AssertionError(f"async server outcomes {sv['outcomes']}")
+        return res, dict(server=dict(p50_ttft_s=sv["p50_ttft_s"],
+                                     p99_ttft_s=sv["p99_ttft_s"],
+                                     outcomes=sv["outcomes"]))
+
+    out["rows"]["paged"] = counted("paged wave 0", paged, through_batcher)
+    out["rows"]["dense"] = counted("dense wave 0, async server", dense,
+                                   through_server)
+    out["launches"] = {k: r["launches"] for k, r in out["rows"].items()}
+    out["micro_run"] = {label: time_micro_run(dev, plan, model, batcher)
+                        for label, batcher in (("paged", paged),
+                                               ("dense", dense))}
     return out
 
 
@@ -854,11 +1011,12 @@ def time_lm_qmatmul(qlinear, qlinear_ref, dev):
     """qmatmul at the LM shapes with the L2 cold: a decode step streams 32
     layers' different weights, so each call takes the next of enough weight
     copies to exceed the L2. The int8 head gets ``torch._int_mm`` with x
-    zero-padded to 32 rows as a yardstick for the product alone (no SRS);
-    no PyTorch call takes the a16w8 int16 operands."""
+    zero-padded to 32 rows (its least M; none at M = 32) as a yardstick for
+    the product alone (no SRS); no PyTorch call takes the a16w8 int16
+    operands."""
     rng = np.random.default_rng(13)
     rows = []
-    for (M, K, N, dx, dw, out) in LM_QMATMUL + LM_QMATMUL_M8:
+    for (M, K, N, dx, dw, out) in LM_SHAPES:
         x = torch.from_numpy(_rand(rng, (M, K), dx)).to(dev)
         n_copies = int(2 * L2_BYTES // (K * N)) + 1
         ws = [torch.from_numpy(_rand(rng, (K, N), dw)).to(dev)
@@ -876,8 +1034,9 @@ def time_lm_qmatmul(qlinear, qlinear_ref, dev):
             xp = torch.zeros((32, K), dtype=torch.int8, device=dev)
             xp[:M] = x
             lib = device_ms(cold(lambda w: torch._int_mm(xp, w)))
-            lib_note = (f"torch._int_mm with x zero-padded from {M} to 32 "
-                        f"rows, int32 out, no SRS")
+            lib_note = ("torch._int_mm" + (
+                f" with x zero-padded from {M} to 32 rows" if M < 32 else "")
+                + ", int32 out, no SRS")
         ops = 2.0 * M * K * N
         nbytes = x.numel() * x.element_size() + K * N + M * N * 2
         t_ops = ops / H100_INT8_OPS * 1e3
@@ -965,7 +1124,7 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"kernel == plain: {chk.cases} cases ({n_grid} grid, path shapes "
           f"{shapes}, wraparound K={wrap_k}, small M {SMALL_M_SHAPES} with "
-          f"{n_split} split-K plans, LM shapes {LM_QMATMUL + LM_QMATMUL_M8} "
+          f"{n_split} split-K plans, LM shapes {LM_SHAPES} "
           f"with {n_split_lm} split-K plans), max |diff| {chk.max_abs_err}")
 
     # phase 3: the main path, counted from zero
@@ -1060,21 +1219,17 @@ def main() -> int:
     # phase 9: continuous serving at full width, each run counted from zero
     cont = run_continuous(dev, model, srv["plan"], ops, flash_ops)
     for label, mr in cont["micro_run"].items():
-        cs = mr["split"]
-        if cs["qmatmul_ms"] <= 0:
-            raise AssertionError(f"profiler split found no qmatmul time in "
-                                 f"a {label} micro-run: {cs}")
-        print(f"micro-run yi-6b quantized {label}, batch {CONT_BATCH}, "
-              f"k={CONT_K}: median {mr['median_ms']:.4f} ms (host clock, 5 "
-              f"calls, all {[round(x, 4) for x in mr['latencies_ms']]}); "
-              f"device: flash {cs['flash_ms']:.4f} ms + qmatmul "
-              f"{cs['qmatmul_ms']:.4f} ms + other ops "
-              f"{cs['other_device_ms']:.4f} ms, idle share "
-              f"{1 - device_busy_ms(cs) / mr['median_ms']:.3f} of the median "
-              f"(profiled wall {cs['profiled_wall_ms']:.4f} ms); largest "
-              f"device entries (ms per micro-run) "
-              f"{[(k, round(v, 4)) for k, v in cs['top']]}")
+        print(micro_run_line(f"micro-run yi-6b quantized {label}, batch "
+                             f"{CONT_BATCH}, k={CONT_K}", mr))
     cont_launches = cont["launches"]["paged"] + cont["launches"]["dense"]
+
+    # phase 10: speculative serving at full width, each run counted from zero
+    spec = run_speculative(dev, model, srv["plan"], ops, flash_ops,
+                           cont["waves"][0], cont["loops"][0])
+    for label, mr in spec["micro_run"].items():
+        print(micro_run_line(f"spec micro-run yi-6b quantized {label}, "
+                             f"batch {CONT_BATCH}, k={SPEC_K}", mr))
+    spec_launches = spec["launches"]["paged"] + spec["launches"]["dense"]
 
     per = {(r["M"], r["K"], r["N"]): r for r in rows_t + lm_rows}
     # one aie predict of every request configuration, and one quantized
@@ -1089,14 +1244,19 @@ def main() -> int:
     record = {"kernels": [{
         "name": "qmatmul", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": TPU_KERNEL,
-        "launches": launches + srv["launches"] + cont_launches,
+        "launches": launches + srv["launches"] + cont_launches
+        + spec_launches,
         "launches_by_path": {
             "paper models (phase 3)": launches,
             "yi-6b fifo serve (phase 7)": srv["launches"],
             "yi-6b continuous paged serve (phase 9)":
                 cont["launches"]["paged"],
             "yi-6b continuous dense serve (phase 9)":
-                cont["launches"]["dense"]},
+                cont["launches"]["dense"],
+            "yi-6b speculative paged serve (phase 10)":
+                spec["launches"]["paged"],
+            "yi-6b speculative dense async serve (phase 10)":
+                spec["launches"]["dense"]},
         "exact": True, "max_abs_err": chk.max_abs_err, "cases": chk.cases,
         "work": "one aie predict of every request configuration and one "
                 "quantized yi-6b decode step at batch 4",

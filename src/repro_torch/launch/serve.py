@@ -12,6 +12,9 @@ hits and no new builds). Runs on the card unless ``--device cpu``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --debug \\
         --device cpu --schedule continuous --steps-per-dispatch 4 --paged \\
         --policy edf --stream --tokens 6 --rounds 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --debug \\
+        --device cpu --schedule continuous --steps-per-dispatch 4 \\
+        --speculative 4 --draft prefix:1 --tokens 6 --rounds 3
 
 Flags:
   --arch       architecture alias (required), e.g. yi-6b
@@ -34,8 +37,14 @@ Flags:
                shared-prefix reuse; optional page size (default 16).
                Every request then opens with the same one-page system
                prompt, and the allocator counters are printed
-  --speculative, --draft
-               speculative lanes: raise NotImplementedError (next slice)
+  --speculative K
+               speculative lanes: a layer-prefix draft proposes K tokens
+               per micro-run and the whole model verifies them in the same
+               step (needs --schedule continuous; K must equal
+               --steps-per-dispatch; composes with --paged through
+               revocable draft pages). Prints the acceptance counters
+  --draft      draft for --speculative: "prefix:N" runs the first N
+               layers as the draft (default: half the stack)
 """
 
 from __future__ import annotations
@@ -125,9 +134,13 @@ def main(argv=None):
                     help="paged KV with shared-prefix reuse (needs "
                          "--schedule continuous); page size default 16")
     ap.add_argument("--speculative", type=int, default=0, metavar="K",
-                    help="speculative lanes: not ported yet")
+                    help="speculative decode: draft K tokens per micro-run "
+                         "and verify them in the same step (needs "
+                         "--schedule continuous; K must equal "
+                         "--steps-per-dispatch; composes with --paged)")
     ap.add_argument("--draft", default=None, metavar="PREFIX:N",
-                    help="draft model for --speculative: not ported yet")
+                    help="draft model for --speculative: 'prefix:N' = "
+                         "first N layers (default: half the stack)")
     args = ap.parse_args(argv)
     if args.tokens < 1:
         ap.error("--tokens must be >= 1")
@@ -145,6 +158,14 @@ def main(argv=None):
             ap.error(f"{flag} needs --schedule continuous")
     if args.paged is not None and args.paged is not True and args.paged < 1:
         ap.error("--paged page size must be >= 1")
+    if args.speculative:
+        if not continuous:
+            ap.error("--speculative needs --schedule continuous")
+        if args.speculative != args.steps_per_dispatch:
+            ap.error("--speculative must equal --steps-per-dispatch "
+                     "(the draft proposes exactly one micro-run)")
+    if args.draft is not None and not args.speculative:
+        ap.error("--draft needs --speculative")
 
     batcher = build_batcher(args)
     batch = batcher.policy.buckets[0].batch
@@ -191,12 +212,23 @@ def main(argv=None):
               f"{s['refills']} refills, busy slot fraction "
               f"{s['busy_slot_fraction']}, mean refill gap "
               f"{s['mean_refill_gap']} steps")
+        if "spec" in s:
+            sp = s["spec"]
+            print(f"speculative: k={sp['spec_k']} draft_layers="
+                  f"{sp['draft_layers']}, {sp['accepted_tokens']}/"
+                  f"{sp['draft_tokens']} draft tokens accepted "
+                  f"({sp['accepted_tokens_per_dispatch']} per verify), "
+                  f"{sp['rollbacks']} rollbacks, {sp['continuations']} "
+                  "continuations")
     if "paged" in stats:
         p = stats["paged"]
         print(f"paged: {p['pages_in_use']}/{p['page_count']} pages in use "
               f"(peak {p['peak_pages']}), {p['prefix_hits']} prefix hits, "
               f"{p['skipped_prefill_tokens']} prompt tokens skipped (rate "
               f"{p['prefill_skip_rate']:.3f}), {p['evictions']} evictions")
+        if args.speculative:
+            print(f"draft leases: {p['draft_pages_committed']} pages "
+                  f"committed, {p['draft_pages_rolled_back']} rolled back")
     c = stats["cache"]
     first = f"{t_first:.2f}s" if t_first is not None else "n/a"
     print(f"{batcher.cfg.name} on {batcher.device}: first token {first}; "

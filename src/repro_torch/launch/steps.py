@@ -17,9 +17,11 @@ from repro_torch.models.base import (
     ArchConfig,
     PageView,
     ShapeSpec,
+    split_spec_state,
     state_batch_axes,
     wipe_state_slots,
 )
+from repro_torch.serve.validation import validate_spec_geometry
 
 Step = Callable[..., object]
 
@@ -122,21 +124,42 @@ def make_masked_decode_step(cfg: ArchConfig, batch: int, max_len: int, *,
     ``start`` may sit before the admission boundary when a prompt prefix
     came from the prefix cache. The fresh wipe skips the pool leaves.
 
+    With ``spec=(spec_k, draft_layers)`` (``spec_k`` must equal k) the
+    micro-run is a speculative dispatch. The first ``draft_layers`` blocks
+    of the model (shared embedding, final norm and head; no second
+    parameter set) draft k tokens with ``decode_block(m=1)``, chaining
+    their own argmax through the feed lane, on the ``draft_`` half of the
+    state; then the whole model scores the k consumed tokens in ONE
+    teacher-forced ``decode_block`` over the same positions. Both index at
+    each slot's local position ``pos + i - start[0, b]``, which makes a
+    host-side rollback a bump of the slot's start: rejected rows sit at
+    or above the rewound cursor, where the next block overwrites them
+    before any mask admits them. Paged, the draft's KV twins live in their
+    own pool with the same page axes and both index through the slot's
+    one page table.
+
     ``masked(model, state, feed [k,B], prev [B], pos, start [k,B],
     active [k,B], fresh [k,B] [, table]) -> (toks [k,B] int32, last [B]
     int32, state)``: ``pos`` is the micro-run's base position (a host
-    int), ``prev`` the previous micro-run's ``last``. The state is written
-    in place. The k steps are a Python loop of device work: nothing in it
-    reads a tensor back to the host.
+    int), ``prev`` the previous micro-run's ``last``. Speculative mode
+    returns ``(verify [k,B], drafts [k,B], state)`` instead, the target's
+    greedy token after each consumed position and the draft's proposals,
+    both 0 on inactive lane-steps; its ``prev`` is the last committed
+    token of each slot, which the host rebuilds at every boundary. The
+    state is written in place. The steps are a Python loop of device work:
+    nothing in it reads a tensor back to the host.
     """
     if steps_per_dispatch < 1:
         raise ValueError(
             f"steps_per_dispatch must be >= 1, got {steps_per_dispatch}")
-    if spec is not None:
-        from repro_torch.serve.validation import SPEC_NOT_PORTED
-
-        raise NotImplementedError(SPEC_NOT_PORTED)
     k = steps_per_dispatch
+    if spec is not None:
+        validate_spec_geometry(spec, k)
+        draft_layers = spec[1]
+        if draft_layers > cfg.n_layers:
+            raise ValueError(
+                f"draft_layers must be in [1, {cfg.n_layers}], "
+                f"got {draft_layers}")
     sched = (k, batch)
     n_tables = page_size = 0
     if paged is not None:
@@ -165,6 +188,9 @@ def make_masked_decode_step(cfg: ArchConfig, batch: int, max_len: int, *,
                              f"bucket's {max_len} positions")
         wipe_state_slots(state, fresh[0],
                          state_batch_axes(state, paged is not None))
+        if spec is not None:
+            return spec_run(model, state, feed, prev, pos, start, active,
+                            table)
         toks = []
         last = prev
         for i in range(k):
@@ -183,6 +209,33 @@ def make_masked_decode_step(cfg: ArchConfig, batch: int, max_len: int, *,
                                0)
             toks.append(last)
         return torch.stack(toks), last, state
+
+    def spec_run(model, state, feed, prev, pos, start, active, table):
+        tstate, dstate = split_spec_state(state)
+        local0 = pos - start[0]                         # [B] per slot
+
+        def view(local):
+            return (PageView(table, local, page_size) if paged is not None
+                    else None)
+
+        tok_ins, drafts = [], []
+        last = prev
+        for i in range(k):
+            tok_in = torch.where(feed[i] >= 0, feed[i], last)
+            logits, _ = model.decode_block(
+                dstate, tok_in[:, None], local0 + i, pages=view(local0 + i),
+                n_layers=draft_layers)
+            last = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
+            tok_ins.append(tok_in)
+            drafts.append(last)
+        # one teacher-forced pass of the whole model over the k tokens the
+        # draft consumed (prompt feeds included, so both caches hold the
+        # same token prefix)
+        logits, _ = model.decode_block(tstate, torch.stack(tok_ins, dim=1),
+                                       local0, pages=view(local0))
+        verify = torch.argmax(logits, dim=-1).to(torch.int32).T   # [k, B]
+        return (torch.where(active, verify, 0),
+                torch.where(active, torch.stack(drafts), 0), state)
 
     return masked_decode
 

@@ -5,7 +5,9 @@ Prefill uses a query-chunked attention so the score matrix never lives at
 (the hand-written CUDA kernel for tensors on the card, its plain version
 for tensors on the CPU). Decode attends one new token over the cache: a
 dense [B, S, KV, hd] slab per layer, or the shared page pool through each
-slot's page table (plain torch indexing, as in the reference).
+slot's page table (plain torch indexing, as in the reference). The block
+decode variants score m consecutive tokens per slot in one pass, at each
+slot's local positions (the speculative draft and verify).
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ def _attend_block(
     k: torch.Tensor,          # [B, Sk, H, hd]  (kv heads already repeated)
     v: torch.Tensor,          # [B, Sk, H, hd]
     q_pos0: Union[int, torch.Tensor],   # global position of q[:, 0]
-    kv_valid: Optional[torch.Tensor],   # [B, Sk] bool or None
+    kv_valid: Optional[torch.Tensor],   # [B, Sk] / [B, Sq, Sk] bool or None
     causal: bool,
     scale: float,
 ) -> torch.Tensor:
@@ -45,7 +47,11 @@ def _attend_block(
         mask = si[None, :] <= qi[:, None]                  # [Sq, Sk]
         scores = scores.masked_fill(~mask[None, None], NEG_INF)
     if kv_valid is not None:
-        scores = scores.masked_fill(~kv_valid[:, None, None, :], NEG_INF)
+        # [B, Sk] masks every query alike; [B, Sq, Sk] is the per-query
+        # form of block decode (query j may see one row more than j - 1)
+        mask = (kv_valid[:, None, None, :] if kv_valid.dim() == 2
+                else kv_valid[:, None])
+        scores = scores.masked_fill(~mask, NEG_INF)
     p = torch.softmax(scores, dim=-1)
     # the probabilities are rounded to v's dtype before the PV product, as
     # in the reference; the product itself accumulates in fp32
@@ -215,4 +221,146 @@ def paged_decode_self_attention(
     kv_valid = torch.arange(S, device=x.device)[None, :] <= local[:, None]
     o = mha(q, k_all, v_all, causal=False, kv_valid=kv_valid)
     out = linear(params["wo"], o.reshape(B, 1, n_heads * head_dim))
+    return out, cache_k, cache_v
+
+
+def _block_write_rows(posb: torch.Tensor, S: int, k: torch.Tensor,
+                      v: torch.Tensor, last_k: torch.Tensor,
+                      last_v: torch.Tensor):
+    """Positions and rows to write for a block, with the out-of-range ones
+    dropped.
+
+    ``posb`` [B, m] are each slot's local positions (consecutive per slot),
+    ``k``/``v`` [B, m, KV, hd] the rows, ``last_k``/``last_v`` [B, KV, hd]
+    the current contents of each slot's last position ``S - 1``. The
+    reference's scatter drops a write outside ``[0, S)``; an ``index_put_``
+    cannot skip an index without a host sync, so a dropped write becomes a
+    write of position ``S - 1`` carrying the value that row holds once the
+    block is written: the block's own row for ``S - 1`` if the block
+    covers it, else the row's current contents. Every write to one row
+    then carries one value, so the order of duplicates cannot matter and
+    no row changes that the reference leaves alone.
+    """
+    m = posb.shape[1]
+    in_range = (posb >= 0) & (posb < S)
+    j_last = (S - 1) - posb[:, 0]                       # [B]
+    covers = (j_last >= 0) & (j_last < m)
+    pick = j_last.clamp(0, m - 1)[:, None, None, None].expand(
+        -1, 1, *k.shape[2:])
+    fill_k = torch.where(covers[:, None, None], k.gather(1, pick)[:, 0],
+                         last_k)
+    fill_v = torch.where(covers[:, None, None], v.gather(1, pick)[:, 0],
+                         last_v)
+    keep = in_range[:, :, None, None]
+    return (torch.where(in_range, posb, S - 1),
+            torch.where(keep, k, fill_k[:, None]),
+            torch.where(keep, v, fill_v[:, None]))
+
+
+def block_decode_self_attention(
+    params: Params,
+    x: torch.Tensor,              # [B, m, d] block of token hiddens
+    cache_k: torch.Tensor,        # [B, S, KV, hd] this layer's cache
+    cache_v: torch.Tensor,
+    local: torch.Tensor,          # [B] int: local position of x[:, 0]
+    *,
+    n_heads: int,
+    n_kv: int,
+    head_dim: int,
+    rope_theta: float = 10000.0,
+):
+    """Decode a block of ``m`` consecutive tokens per slot in one pass.
+
+    Slot ``b``'s token ``j`` lives at row ``local[b] + j`` of its own lane:
+    RoPE rotates by that (unclamped) position, the row is written IN PLACE,
+    and query ``j`` attends over rows ``<= local[b] + j``. Rows a rejected
+    speculative suffix leaves behind sit at or above the rewound cursor,
+    where the next block's writes replace them before any mask admits
+    them, so a rollback needs no cache surgery. Writes outside ``[0, S)``
+    are dropped, as the reference's scatter drops them. ``m == 1`` is the
+    draft's step, ``m == k`` the target's verify pass.
+
+    Returns (out [B, m, d], cache_k, cache_v), the caches being the same
+    tensors.
+    """
+    B, m, _ = x.shape
+    S = cache_k.shape[1]
+    q = linear(params["wq"], x).reshape(B, m, n_heads, head_dim)
+    k = linear(params["wk"], x).reshape(B, m, n_kv, head_dim)
+    v = linear(params["wv"], x).reshape(B, m, n_kv, head_dim)
+    posb = local.long()[:, None] + torch.arange(m, device=x.device)
+    inv_freq = rope_freqs(head_dim, rope_theta, device=x.device)
+    q = apply_rope(q, posb, inv_freq)
+    k = apply_rope(k, posb, inv_freq)
+    rows, k_w, v_w = _block_write_rows(posb, S, k, v, cache_k[:, S - 1],
+                                       cache_v[:, S - 1])
+    lanes = torch.arange(B, device=x.device)[:, None]
+    cache_k[lanes, rows] = k_w
+    cache_v[lanes, rows] = v_w
+    # query j of slot b sees exactly rows [0, local[b] + j]
+    kv_valid = (torch.arange(S, device=x.device)[None, None, :]
+                <= posb[:, :, None])
+    o = mha(q, cache_k, cache_v, causal=False, kv_valid=kv_valid)
+    out = linear(params["wo"], o.reshape(B, m, n_heads * head_dim))
+    return out, cache_k, cache_v
+
+
+def paged_block_decode_self_attention(
+    params: Params,
+    x: torch.Tensor,              # [B, m, d] block of token hiddens
+    cache_k: torch.Tensor,        # [P, ps, KV, hd] this layer's page pool
+    cache_v: torch.Tensor,
+    pages,                        # models.base.PageView; local_pos of x[:, 0]
+    *,
+    n_heads: int,
+    n_kv: int,
+    head_dim: int,
+    rope_theta: float = 10000.0,
+):
+    """Block decode of ``m`` consecutive tokens against the page pool.
+
+    The paged twin of :func:`block_decode_self_attention`: token ``j`` of
+    slot ``b`` lives at local position ``local_pos[b] + j`` of its own page
+    run, RoPE rotates by that unclamped position and query ``j`` attends
+    over local rows ``<= local_pos[b] + j``. Writes scatter IN PLACE
+    through the table; a position outside ``[0, S)`` is dropped (see
+    :func:`_block_write_rows`), never clamped onto a real row.
+
+    One ``index_put_`` orders duplicate indices arbitrarily on CUDA. The
+    caller gives every lane its own pages (empty and self-masked lanes
+    carry their own scratch page), so lanes never share a row; within a
+    lane, ``m <= ps`` consecutive positions fall on distinct offsets, and
+    a longer block is written in runs of ``ps`` positions, in order.
+
+    Returns (out [B, m, d], cache_k, cache_v), the caches being the same
+    tensors.
+    """
+    B, m, _ = x.shape
+    ps = pages.page_size
+    table = pages.table.long()
+    n_pages = table.shape[1]
+    S = n_pages * ps
+    q = linear(params["wq"], x).reshape(B, m, n_heads, head_dim)
+    k = linear(params["wk"], x).reshape(B, m, n_kv, head_dim)
+    v = linear(params["wv"], x).reshape(B, m, n_kv, head_dim)
+    posb = pages.local_pos.long()[:, None] + torch.arange(m, device=x.device)
+    inv_freq = rope_freqs(head_dim, rope_theta, device=x.device)
+    q = apply_rope(q, posb, inv_freq)
+    k = apply_rope(k, posb, inv_freq)
+    last_page = table[:, -1]
+    rows, k_w, v_w = _block_write_rows(posb, S, k, v,
+                                       cache_k[last_page, ps - 1],
+                                       cache_v[last_page, ps - 1])
+    page_ids = table.gather(1, rows // ps)
+    offs = rows % ps
+    for j in range(0, m, ps):
+        cache_k[page_ids[:, j:j + ps], offs[:, j:j + ps]] = k_w[:, j:j + ps]
+        cache_v[page_ids[:, j:j + ps], offs[:, j:j + ps]] = v_w[:, j:j + ps]
+    k_all = cache_k[table].reshape(B, S, n_kv, head_dim)
+    v_all = cache_v[table].reshape(B, S, n_kv, head_dim)
+    # query j of slot b sees exactly local rows [0, local_pos[b] + j]
+    kv_valid = (torch.arange(S, device=x.device)[None, None, :]
+                <= posb[:, :, None])
+    o = mha(q, k_all, v_all, causal=False, kv_valid=kv_valid)
+    out = linear(params["wo"], o.reshape(B, m, n_heads * head_dim))
     return out, cache_k, cache_v

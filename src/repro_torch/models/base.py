@@ -10,7 +10,7 @@ carries (the dense decoder LM). There is no ``ParamSpec``: a model is an
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, NamedTuple, Optional
+from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -116,10 +116,33 @@ class PageView(NamedTuple):
 # hd] in the shared pool.
 PAGED_STATE_KEYS = ("cache_k", "cache_v")
 
+# Prefix of the speculative draft's KV twins in a merged decode state.
+DRAFT_PREFIX = "draft_"
+
 
 def is_paged_state_key(name: str) -> bool:
-    """True for leaves that live in the shared page pool."""
+    """True for leaves that live in the shared page pool: the KV caches and
+    their ``draft_`` twins (the draft's KV rides the same page tables: one
+    page id indexes both pools at matching local positions)."""
+    if name.startswith(DRAFT_PREFIX):
+        name = name[len(DRAFT_PREFIX):]
     return name in PAGED_STATE_KEYS
+
+
+def split_spec_state(state: Mapping[str, torch.Tensor]
+                     ) -> Tuple[Dict[str, torch.Tensor],
+                                Dict[str, torch.Tensor]]:
+    """Split a merged speculative state into ``(target, draft)``.
+
+    Both are new dicts over the SAME tensors (no copy), so a step that
+    writes either half in place writes the merged state. The draft's keys
+    lose their prefix, so one ``decode_block`` consumes either half.
+    """
+    target = {k: v for k, v in state.items()
+              if not k.startswith(DRAFT_PREFIX)}
+    draft = {k[len(DRAFT_PREFIX):]: v for k, v in state.items()
+             if k.startswith(DRAFT_PREFIX)}
+    return target, draft
 
 
 def state_batch_axes(state: Mapping[str, torch.Tensor],
@@ -187,3 +210,23 @@ def decode_head_logits(head_w: torch.Tensor, x: torch.Tensor,
             out_dtype="int16", out_float_dtype=torch.float32, wq=head_wq,
         )
     return matmul_f32(x, head_w)[:, 0]
+
+
+def decode_block_head_logits(head_w: torch.Tensor, x: torch.Tensor,
+                             cfg: ArchConfig,
+                             head_wq: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """Logits [B, m, V] in fp32 for a block of m decode hiddens [B, m, d].
+
+    The block form of :func:`decode_head_logits` for speculative block
+    verification, with the same shifts and the same int8 contract: the
+    quantized projection is one qmatmul launch at M = B * m.
+    """
+    if cfg.quantized:
+        x_shift, w_shift, out_shift = HEAD_SHIFTS
+        return quantized_linear(
+            {"w": head_w}, x,
+            x_shift=x_shift, w_shift=w_shift, out_shift=out_shift,
+            out_dtype="int16", out_float_dtype=torch.float32, wq=head_wq,
+        )
+    return matmul_f32(x, head_w)

@@ -8,7 +8,9 @@ import torch
 from torch import nn
 
 from repro_torch.layers.attention import (
+    block_decode_self_attention,
     decode_self_attention,
+    paged_block_decode_self_attention,
     paged_decode_self_attention,
     self_attention,
 )
@@ -91,16 +93,28 @@ class AttnBlock(nn.Module):
         return x + self.ffn_part(rmsnorm(self.ln2, x), cfg)
 
     def decode(self, x: torch.Tensor, cache_k: torch.Tensor,
-               cache_v: torch.Tensor, pos: int, cfg: ArchConfig, *,
-               window_start: Optional[torch.Tensor] = None, pages=None):
+               cache_v: torch.Tensor, pos: Optional[int], cfg: ArchConfig, *,
+               window_start: Optional[torch.Tensor] = None, pages=None,
+               local: Optional[torch.Tensor] = None):
         """One decode token; writes this layer's caches in place. With
         ``pages`` (a ``models.base.PageView``) the caches are this layer's
         page pool [P, ps, KV, hd] and ``pos``/``window_start`` are unused:
-        each slot indexes and rotates at its own local position."""
+        each slot indexes and rotates at its own local position.
+
+        With ``local`` ([B] int) ``x`` is a block [B, m, d] decoded at each
+        slot's local positions ``local[b] + j`` (the speculative lanes);
+        paged, the PageView's ``local_pos`` is the block's origin and
+        ``local`` only selects the block path."""
         h = rmsnorm(self.ln1, x)
         heads = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv,
                      head_dim=cfg.head_dim, rope_theta=cfg.rope_theta)
-        if pages is not None:
+        if local is not None and pages is not None:
+            h, ck, cv = paged_block_decode_self_attention(
+                self.attn, h, cache_k, cache_v, pages, **heads)
+        elif local is not None:
+            h, ck, cv = block_decode_self_attention(
+                self.attn, h, cache_k, cache_v, local, **heads)
+        elif pages is not None:
             h, ck, cv = paged_decode_self_attention(
                 self.attn, h, cache_k, cache_v, pages, **heads)
         else:

@@ -16,10 +16,12 @@ from repro_torch.layers.embedding import embed
 from repro_torch.layers.linear import matmul_f32, quantize_weight
 from repro_torch.layers.norm import rmsnorm
 from repro_torch.models.base import (
+    DRAFT_PREFIX,
     HEAD_SHIFTS,
     PAGED_STATE_KEYS,
     ArchConfig,
     PageView,
+    decode_block_head_logits,
     decode_head_logits,
 )
 from repro_torch.models.blocks import AttnBlock, norm_params
@@ -117,7 +119,8 @@ class DecoderLM(nn.Module):
 
     def decode_state(self, batch: int, max_len: int,
                      paged: Optional[Tuple[int, int]] = None,
-                     only: Optional[str] = None) -> Dict[str, torch.Tensor]:
+                     only: Optional[str] = None,
+                     draft_layers: int = 0) -> Dict[str, torch.Tensor]:
         """A zeroed bf16 KV cache ``{"cache_k", "cache_v"}``, each
         [L, B, max_len, KV, hd] on the model's device (the reference's
         ``decode_state_specs``, allocated).
@@ -126,19 +129,23 @@ class DecoderLM(nn.Module):
         page pool [L, page_count, page_size, KV, hd] instead. ``only``
         picks one half of a paged state: ``"pool"`` the pool leaves,
         ``"dense"`` the per-slot remainder (empty for this model, whose
-        only state is the KV cache)."""
+        only state is the KV cache). ``draft_layers`` N > 0 adds the
+        speculative draft's KV twins ``draft_cache_k``/``draft_cache_v``
+        with N layers, laid out like the target's (the reference's
+        ``spec_state_specs``)."""
         cfg = self.cfg
-        shape = (cfg.n_layers, batch, max_len, cfg.n_kv, cfg.head_dim)
+        per_slot = (batch, max_len)
         if paged is not None:
-            page_count, page_size = paged
-            shape = (cfg.n_layers, page_count, page_size, cfg.n_kv,
-                     cfg.head_dim)
-        names = PAGED_STATE_KEYS
+            per_slot = tuple(paged)
+        layers = {name: cfg.n_layers for name in PAGED_STATE_KEYS}
+        if draft_layers:
+            layers.update({DRAFT_PREFIX + name: draft_layers
+                           for name in PAGED_STATE_KEYS})
         if paged is not None and only == "dense":
-            names = ()
-        return {name: torch.zeros(shape, dtype=torch.bfloat16,
-                                  device=self.device)
-                for name in names}
+            layers = {}
+        return {name: torch.zeros((n, *per_slot, cfg.n_kv, cfg.head_dim),
+                                  dtype=torch.bfloat16, device=self.device)
+                for name, n in layers.items()}
 
     @torch.inference_mode()
     def decode_step(self, state: Dict[str, torch.Tensor],
@@ -162,3 +169,37 @@ class DecoderLM(nn.Module):
         x = rmsnorm(self.ln_f, x)
         head_q = self.quantized_head() if cfg.quantized else None
         return decode_head_logits(self.head["w"], x, cfg, head_q), state
+
+    @torch.inference_mode()
+    def decode_block(self, state: Dict[str, torch.Tensor],
+                     tokens: torch.Tensor, local: torch.Tensor, *,
+                     pages: Optional[PageView] = None,
+                     n_layers: Optional[int] = None):
+        """Score a block of m consecutive tokens per sequence in one pass.
+
+        ``tokens`` [B, m] int; ``local`` [B] int is each slot's local
+        position of ``tokens[:, 0]`` (RoPE, cache writes and the per-query
+        mask all use ``local[b] + j``). With ``pages`` (whose ``local_pos``
+        equals ``local``) the KV leaves are the shared page pool. The KV
+        of ``state`` is written in place. ``n_layers`` N runs only the
+        first N blocks with the shared embedding, final norm and head: the
+        self-speculative draft, on the draft half of a speculative state
+        (``split_spec_state``), whose leaves have N layers.
+
+        Returns ``(logits [B, m, V] fp32, state)``: ``logits[b, j]`` is the
+        next-token distribution after ``tokens[b, :j + 1]``, what m
+        ``decode_step`` calls give up to float re-association. ``m == 1``
+        is the draft's step, ``m == k`` the target's verify pass.
+        """
+        cfg = self.cfg
+        n = cfg.n_layers if n_layers is None else n_layers
+        if state["cache_k"].shape[0] != n:
+            raise ValueError(f"state has {state['cache_k'].shape[0]} layers, "
+                             f"the block runs {n}")
+        x = embed(self.embed, tokens)
+        for i, blk in enumerate(self.blocks[:n]):
+            x, _, _ = blk.decode(x, state["cache_k"][i], state["cache_v"][i],
+                                 None, cfg, pages=pages, local=local)
+        x = rmsnorm(self.ln_f, x)
+        head_q = self.quantized_head() if cfg.quantized else None
+        return decode_block_head_logits(self.head["w"], x, cfg, head_q), state

@@ -97,15 +97,19 @@ class ExecutionPlan:
         return model
 
     def fresh_decode_state(self, batch: int, max_len: int, paged=None,
-                           only: Optional[str] = None):
+                           only: Optional[str] = None, spec=None):
         """A zeroed decode state for one bucket shape.
 
         With ``paged=(page_count, page_size)`` the KV leaves come in the
         shared-pool layout [L, page_count, page_size, KV, hd]; ``only``
         restricts a paged build to one half: ``"pool"`` the pool leaves
         (bucket-independent: the StatePool builds them once), ``"dense"``
-        the per-slot remainder."""
-        return self.model.decode_state(batch, max_len, paged=paged, only=only)
+        the per-slot remainder. With ``spec=(spec_k, draft_layers)`` the
+        state also carries the draft's ``draft_`` KV twins (pooled too
+        when paged: they ride the slot's page table)."""
+        return self.model.decode_state(
+            batch, max_len, paged=paged, only=only,
+            draft_layers=spec[1] if spec is not None else 0)
 
     # -- quantization calibration ---------------------------------------------
 
@@ -139,13 +143,14 @@ class ExecutionPlan:
     # -- executables ----------------------------------------------------------
 
     def _key(self, kind: str, batch: int, max_len: int,
-             prefill_len: int = 0, steps: int = 1, paged=()) -> CacheKey:
+             prefill_len: int = 0, steps: int = 1, paged=(),
+             spec=()) -> CacheKey:
         return CacheKey(
             arch=self.cfg.name, kind=kind, batch=batch, max_len=max_len,
             prefill_len=prefill_len, mode=self.mode,
             mesh_axes=CacheKey.device_signature(self.device),
             quantized=self.cfg.quantized, qsig=self._qsig(),
-            steps=steps, paged=tuple(paged),
+            steps=steps, paged=tuple(paged), spec=tuple(spec),
         )
 
     def executable(self, kind: Optional[str] = None) -> CachedExecutable:
@@ -180,7 +185,10 @@ class ExecutionPlan:
         steps; one step per (bucket, k), keyed apart in the cache).
         ``paged=(page_count, page_size)`` (masked_decode only) swaps the
         dense KV slabs for the shared page pool plus a page-table input.
-        ``spec`` (speculative lanes) raises ``NotImplementedError``."""
+        ``spec=(spec_k, draft_layers)`` (masked_decode only) builds the
+        speculative micro-run (a layer-prefix draft, then a block verify;
+        see ``make_masked_decode_step``); ``spec`` joins the cache key, so
+        steps differing only in draft depth never share an entry."""
         if steps_per_dispatch < 1:
             raise ValueError(
                 f"steps_per_dispatch must be >= 1, got {steps_per_dispatch}")
@@ -200,10 +208,10 @@ class ExecutionPlan:
                 raise ValueError(
                     f"max_len {max_len} must be a multiple of page_size "
                     f"{page_size}")
-        if spec is not None:
-            from repro_torch.serve.validation import SPEC_NOT_PORTED
-
-            raise NotImplementedError(SPEC_NOT_PORTED)
+        if spec is not None and kind != "masked_decode":
+            raise ValueError(
+                "speculative decode only applies to masked_decode "
+                f"executables, not {kind!r}")
         if kind == "decode":
             shape = ShapeSpec(f"b{batch}xl{max_len}", max_len, batch,
                               "decode")
@@ -214,12 +222,13 @@ class ExecutionPlan:
         elif kind == "masked_decode":
             build = lambda: make_masked_decode_step(  # noqa: E731
                 self.cfg, batch, max_len,
-                steps_per_dispatch=steps_per_dispatch, paged=paged)
+                steps_per_dispatch=steps_per_dispatch, paged=paged, spec=spec)
         else:
             raise ValueError(f"unknown serve executable kind {kind!r}")
         key = self._key(kind, batch, max_len, prefill_len,
                         steps=steps_per_dispatch,
-                        paged=paged if paged is not None else ())
+                        paged=paged if paged is not None else (),
+                        spec=spec if spec is not None else ())
         self._built_any = True
         return self.cache.get_or_build(key, build)
 

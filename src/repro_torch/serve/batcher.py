@@ -23,7 +23,10 @@ take their steps from the plan's :class:`ExecutableCache` and their state
 from the :class:`StatePool`; after warm-up a dispatch builds nothing new,
 and the cache counters show it.
 
-Speculative lanes raise ``NotImplementedError`` (the next slice).
+``speculative=k`` (continuous only, k = ``steps_per_dispatch``) turns each
+micro-run into a draft of k tokens by a layer prefix of the model
+(``draft="prefix:N"``, default half the stack) and one block verify by the
+whole model; the host commits the prefix the model agrees with.
 """
 
 from __future__ import annotations
@@ -223,6 +226,11 @@ class ServeBatcher:
     ``paged`` (continuous only): ``True`` for :func:`auto_paged`, an int
     for ``auto_paged`` with that page size, ``(page_count, page_size)``
     as given, ``False``/``None`` for dense KV.
+
+    ``speculative`` (continuous only): the draft length per micro-run,
+    equal to ``steps_per_dispatch``; ``draft`` names the draft,
+    ``"prefix:N"`` for the first N layers (default half the stack). Every
+    check lives in :mod:`repro_torch.serve.validation`.
     """
 
     def __init__(self, plan, *, policy: Optional[BucketPolicy] = None,
@@ -267,12 +275,18 @@ class ServeBatcher:
                         f"bucket {b.label}: max_len must be a multiple of "
                         f"page_size={paged[1]}")
         self.paged = paged
-        from repro_torch.serve.validation import resolve_speculative
+        from repro_torch.serve.validation import (
+            resolve_speculative,
+            validate_paged_spec,
+        )
 
-        resolve_speculative(speculative, draft, schedule=schedule,
-                            steps_per_dispatch=steps_per_dispatch,
-                            n_layers=plan.cfg.n_layers)
-        self.pool = StatePool(plan, paged=paged)
+        spec = resolve_speculative(speculative, draft, schedule=schedule,
+                                   steps_per_dispatch=steps_per_dispatch,
+                                   n_layers=plan.cfg.n_layers)
+        if spec is not None and paged is not None:
+            validate_paged_spec(spec, paged, self.policy.buckets)
+        self.spec = spec
+        self.pool = StatePool(plan, paged=paged, spec=spec)
         self.metrics: Dict[str, BucketMetrics] = {}
         self._pending: Deque[DecodeRequest] = collections.deque()
         self._pending_ids: set = set()
@@ -285,7 +299,8 @@ class ServeBatcher:
 
             self._scheduler = ContinuousScheduler(
                 plan, self.policy, self.pool,
-                steps_per_dispatch=steps_per_dispatch, admission=admission)
+                steps_per_dispatch=steps_per_dispatch, admission=admission,
+                spec=spec)
 
     @property
     def scheduler(self):
@@ -410,6 +425,8 @@ class ServeBatcher:
             kw["steps_per_dispatch"] = self.steps_per_dispatch
             if self.paged is not None:
                 kw["paged"] = self.paged
+            if self.spec is not None:
+                kw["spec"] = self.spec
         return self.plan.serve_executable(
             kind, batch=bucket.batch, max_len=bucket.max_len,
             prefill_len=prefill_len, **kw)

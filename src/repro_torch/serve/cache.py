@@ -29,9 +29,9 @@ class CacheKey:
 
     The fields are the reference's. ``mesh_axes`` holds the device
     signature (``(("cuda", 0),)``); ``steps`` is the masked micro-run's
-    length and ``paged`` its ``(page_count, page_size)``; ``stages``
-    (pipeline stages) and ``spec`` (speculative lanes) keep their
-    reference defaults until the port carries those features.
+    length, ``paged`` its ``(page_count, page_size)`` and ``spec`` its
+    ``(spec_k, draft_layers)``; ``stages`` (pipeline stages) keeps its
+    reference default until the port carries pipelines.
     """
 
     arch: str

@@ -51,7 +51,21 @@ Paged mode (a pool with an ``allocator``): each admitted slot leases
 pages from the :class:`~repro_torch.serve.paging.PageAllocator`; a
 prefix-cache hit backdates the slot's ``start`` by the shared span, and
 empty or self-masked lanes write into their own pinned scratch pages.
-Speculative lanes are not ported (``spec`` raises).
+
+Speculative mode (``spec=(spec_k, draft_layers)``): each micro-run is the
+step's draft + block verify instead of k plain steps. At the boundary the
+host fetches the draft and verify lanes, accepts each lane's longest
+draft prefix the model agrees with, commits those tokens (``_Slot.acc``:
+results and stream deltas carry only committed tokens) and rolls the rest
+back by bumping ``_Slot.start``, which in the step's local coordinates
+replays the rejected positions. A request whose rollbacks outrun its
+bucket requeues as a continuation whose prompt carries what it has
+committed; the carry map joins its legs into one result. Paged, admission
+leases only the prompt span and reserves draft-lease headroom; each
+micro-run extends a lane's lease with revocable draft pages covering its
+write front, and the boundary commits or rolls them back
+(``PageAllocator.draft_lease``/``resolve_draft``). A lane the pool cannot
+cover parks as a continuation, releasing its lease.
 """
 
 from __future__ import annotations
@@ -78,9 +92,10 @@ _EVENT_WINDOW = 4096      # bounded: a resident server must not grow per-req
 
 @dataclasses.dataclass(frozen=True)
 class SlotEvent:
-    """One admission, free, cancellation or shed, for tests and traces."""
+    """One admission, free, cancellation, shed or speculative requeue, for
+    tests and traces."""
 
-    kind: str             # "admit" | "free" | "cancel" | "shed"
+    kind: str             # "admit" | "free" | "cancel" | "shed" | "requeue"
     step: int             # global position at which it happened
     slot: int
     request_id: str
@@ -102,6 +117,8 @@ class _Slot:
     start: int            # global position of the request's first token
     fed: int = 0          # prompt tokens teacher-forced so far
     pages: Optional[object] = None   # SlotPages lease (paged mode only)
+    # speculative mode only: the tokens committed this admission
+    acc: Optional[List[int]] = None
 
     @property
     def end_step(self) -> int:
@@ -142,17 +159,20 @@ class ContinuousScheduler:
                         f"bucket {b.label}: max_len must be a multiple of "
                         f"page_size={paged[1]} so page tables tile the "
                         "position space")
-        if spec:
+        spec = tuple(spec) if spec else None
+        if spec is not None:
             from repro_torch.serve.validation import (
-                SPEC_NOT_PORTED,
                 validate_paged_spec,
                 validate_spec_geometry,
             )
 
-            validate_spec_geometry(tuple(spec), steps_per_dispatch)
+            validate_spec_geometry(spec, steps_per_dispatch)
             if paged is not None:
-                validate_paged_spec(tuple(spec), paged, policy.buckets)
-            raise NotImplementedError(SPEC_NOT_PORTED)
+                validate_paged_spec(spec, paged, policy.buckets)
+        if getattr(plan, "device", None) is None:
+            raise ValueError("the plan names no device for the lane "
+                             "schedules")
+        self.spec = spec
         self.plan = plan
         self.policy = policy
         self.pool = pool
@@ -172,6 +192,18 @@ class ContinuousScheduler:
         self.refills = 0
         self.refill_gap_total = 0
         self.max_refill_gap = 0
+        # speculative mode: (lane, micro-run) verify events, draft tokens
+        # proposed and accepted over them, boundary rollbacks, requeued
+        # continuations and partial results
+        self.spec_verifies = 0
+        self.spec_draft_tokens = 0
+        self.spec_accepted_tokens = 0
+        self.spec_rollbacks = 0
+        self.spec_continuations = 0
+        self.spec_partial_results = 0
+        # committed tokens of requeued continuations, by request id; joined
+        # into the result when the continuation finishes
+        self._spec_carry: Dict[str, List[int]] = {}
         self.events: Deque[SlotEvent] = collections.deque(
             maxlen=_EVENT_WINDOW)
         # per-dispatch [B] idle-step vectors
@@ -224,12 +256,15 @@ class ContinuousScheduler:
         now = self._now()
         for req in self.admission.shed(pending, now):
             self.sheds += 1
+            # a shed continuation delivers nothing: drop its carry too
+            self._spec_carry.pop(req.request_id, None)
             self._shed_ids.add(req.request_id)
             self.events.append(SlotEvent("shed", pos, -1, req.request_id))
             if self.on_shed is not None:
                 self.on_shed(req.request_id)
 
         alloc = getattr(self.pool, "allocator", None)
+        lazy = self.spec is not None
 
         def fits(req: DecodeRequest) -> bool:
             need = len(req.prompt) + req.max_new_tokens - 1
@@ -239,10 +274,19 @@ class ContinuousScheduler:
                 return pos + need <= bucket.max_len
             # a prefix-cache hit shrinks the positions the request uses
             # (its start is backdated by the shared span); the page budget
-            # must also cover its private pages
+            # must also cover its private pages. Speculative lanes lease
+            # lazily (the prompt span) but reserve draft-lease headroom for
+            # every live lane plus this one, so speculation never admits
+            # itself into a pool too full to extend a lane's write front
+            reserve = 0
+            if lazy:
+                occupied = 1 + sum(1 for s in slots if s is not None)
+                reserve = alloc.spec_demand(self.steps_per_dispatch) \
+                    * occupied
             shared = alloc.probe(req.prompt)
             return (pos + (need - shared) <= bucket.max_len
-                    and alloc.can_admit(req.prompt, need))
+                    and alloc.can_admit(req.prompt, need, reserve=reserve,
+                                        lazy=lazy))
 
         admitted: List[int] = []
         for b in range(bucket.batch):
@@ -253,16 +297,17 @@ class ContinuousScheduler:
                 break
             if alloc is not None:
                 need = len(chosen.prompt) + chosen.max_new_tokens - 1
-                lease = alloc.admit(chosen.prompt, need)
+                lease = alloc.admit(chosen.prompt, need, lazy=lazy)
                 if lease is None:
                     # the page budget moved between fits and admit (an
                     # eviction edge): requeue at the head, stop filling
                     pending.appendleft(chosen)
                     break
                 slots[b] = _Slot(chosen, start=pos - lease.shared_len,
-                                 fed=lease.shared_len, pages=lease)
+                                 fed=lease.shared_len, pages=lease,
+                                 acc=[] if lazy else None)
             else:
-                slots[b] = _Slot(chosen, start=pos)
+                slots[b] = _Slot(chosen, start=pos, acc=[] if lazy else None)
             admitted.append(b)
             self.admissions += 1
             self.events.append(SlotEvent("admit", pos, b, chosen.request_id))
@@ -287,9 +332,49 @@ class ContinuousScheduler:
             for rid in self._stale_cancels:
                 if results.pop(rid, None) is not None:
                     self.cancellations += 1
+                if self._spec_carry.pop(rid, None) is not None:
+                    # the cancel raced a continuation requeued at the last
+                    # drain: drop it before the next dispatch admits it
+                    for req in list(pending):
+                        if req.request_id == rid:
+                            pending.remove(req)
+                            self.cancellations += 1
+                            break
             self._stale_cancels.clear()
             results.update(res)
         return results
+
+    def _park(self, slots, b, pos, freed_at, done, requeues):
+        """Requeue lane ``b``'s request as a continuation at ``pos``.
+
+        Two callers: the end-of-dispatch drain (rollbacks pushed
+        ``end_step`` past the bucket's positions) and the draft-lease valve
+        (the pool could not cover the lane's write front). The
+        continuation's prompt carries everything committed so far; a page
+        lease is published, then released, so its prompt pages enter the
+        prefix cache. If no bucket can hold the continuation, the committed
+        prefix is delivered as a (counted) partial result.
+        """
+        slot = slots[b]
+        rid = slot.req.request_id
+        alloc = getattr(self.pool, "allocator", None)
+        if alloc is not None and slot.pages is not None:
+            alloc.publish(slot.pages, slot.fed)
+            alloc.release(slot.pages)
+        carry = self._spec_carry.pop(rid, []) + slot.acc
+        cont = dataclasses.replace(
+            slot.req, prompt=list(slot.req.prompt) + slot.acc,
+            max_new_tokens=slot.req.max_new_tokens - len(slot.acc))
+        if cont.need_len > max(bk.max_len for bk in self.policy.buckets):
+            self.spec_partial_results += 1
+            done.append((slot.req, b, slot.start, carry))
+        else:
+            self._spec_carry[rid] = carry
+            requeues.append(cont)
+            self.spec_continuations += 1
+            self.events.append(SlotEvent("requeue", pos, b, rid))
+        freed_at[b] = pos - 1
+        slots[b] = None
 
     def _free(self, slots, b, pos, freed_at, done=None):
         """Release lane ``b`` at boundary ``pos`` (finish or cancel)."""
@@ -302,12 +387,14 @@ class ContinuousScheduler:
                 alloc.publish(slot.pages, slot.fed)
             alloc.release(slot.pages)
         if done is not None:
-            done.append((slot.req, b, slot.start))
+            done.append((slot.req, b, slot.start, slot.acc))
             # the free happened when the request produced its last token
             self.events.append(
                 SlotEvent("free", slot.end_step, b, slot.req.request_id))
             freed_at[b] = slot.end_step
         else:
+            # a cancelled speculative request forfeits its committed prefix
+            self._spec_carry.pop(slot.req.request_id, None)
             self.events.append(
                 SlotEvent("cancel", pos, b, slot.req.request_id))
             # the lane was occupied through the previous micro-run's end
@@ -326,9 +413,11 @@ class ContinuousScheduler:
         paged = getattr(self.pool, "paged", None)
         alloc = getattr(self.pool, "allocator", None)
         kw = {"paged": paged} if paged is not None else {}
+        if self.spec is not None:
+            kw["spec"] = self.spec
         exe = self.plan.serve_executable("masked_decode", batch=B, max_len=L,
                                          steps_per_dispatch=k, **kw)
-        device = getattr(self.plan, "device", torch.device("cpu"))
+        device = self.plan.device
         if paged is not None:
             n_tables = L // paged[1]
             # pinned per-lane scratch pages: empty and self-masked lanes
@@ -341,9 +430,13 @@ class ContinuousScheduler:
         freed_at = [-1] * B
         idle_steps = [0] * B
         ever_used = [False] * B
-        done: List[tuple] = []        # (req, slot idx, start)
+        done: List[tuple] = []        # (req, slot idx, start, acc or None)
         outs: List[object] = []       # per-micro-run token blocks [k, B]
         prev = torch.zeros((B,), dtype=torch.int32, device=device)
+        # speculative mode: each slot's last committed token, the step's
+        # ``prev``, rebuilt on the host at every boundary (a rollback makes
+        # a device-side carry meaningless)
+        prev_host = np.zeros((B,), np.int32)
         pos = 0
         runs = 0                      # micro-runs this dispatch executed
 
@@ -367,10 +460,11 @@ class ContinuousScheduler:
             earlier dispatch (or was bogus) and goes to run()."""
             for rid in list(self._canceled):
                 self._canceled.discard(rid)
-                idx = next((i for i, (req, _, _) in enumerate(done)
+                idx = next((i for i, (req, _, _, _) in enumerate(done)
                             if req.request_id == rid), None)
                 if idx is not None:
                     del done[idx]             # finished: drop the tokens
+                    self._spec_carry.pop(rid, None)
                     self.cancellations += 1
                 else:
                     self._stale_cancels.add(rid)
@@ -407,6 +501,28 @@ class ContinuousScheduler:
             for b in self._admit(pending, bucket, slots, pos, freed_at):
                 fresh[0, b] = True
                 ever_used[b] = True
+            if self.spec is not None and alloc is not None:
+                # extend every live lane's lease with revocable draft pages
+                # covering this micro-run's write front BEFORE the table is
+                # built; a lane the pool cannot cover parks (requeued as a
+                # continuation, lease released) so the others progress
+                parked: List[DecodeRequest] = []
+                for b, slot in enumerate(slots):
+                    if slot is None:
+                        continue
+                    live = min(k, slot.end_step - pos + 1)
+                    if alloc.draft_lease(slot.pages, pos - slot.start + live):
+                        continue
+                    if sum(1 for s in slots if s is not None) == 1:
+                        raise RuntimeError(
+                            "page pool cannot extend the sole speculative "
+                            "lane's draft lease: page_count is too small "
+                            "for spec mode (validate_paged_spec should "
+                            "have rejected this geometry)")
+                    self._park(slots, b, pos, freed_at, done, parked)
+                    fresh[0, b] = False
+                for cont in reversed(parked):
+                    pending.appendleft(cont)
             if all(s is None for s in slots):
                 break                  # drained, or out of positions
 
@@ -417,7 +533,9 @@ class ContinuousScheduler:
                 np.arange(pos, pos + k, dtype=np.int32)[:, None],
                 (k, B)).copy()
             active = np.zeros((k, B), bool)
-            for b, slot in enumerate(slots):
+            lives = [0] * B           # speculative acceptance walks these
+            feeds_n = [0] * B         # prompt feeds among them (never rolled
+            for b, slot in enumerate(slots):      # back: feeds come first)
                 if slot is None:
                     idle_steps[b] += k
                     self.idle_slot_steps += k
@@ -425,6 +543,7 @@ class ContinuousScheduler:
                 # steps this request still runs inside the micro-run;
                 # beyond them the slot self-masks (active False)
                 live = min(k, slot.end_step - pos + 1)
+                lives[b] = live
                 active[:live, b] = True
                 start[:, b] = slot.start
                 idle_steps[b] += k - live
@@ -433,44 +552,55 @@ class ContinuousScheduler:
                     if slot.fed < len(slot.req.prompt):
                         feed[i, b] = slot.req.prompt[slot.fed]
                         slot.fed += 1
+                        feeds_n[b] += 1
                     else:
                         feed[i, b] = -1   # continue from the slot's argmax
 
             extra = ()
             if paged is not None:
-                # [B, n_tables] page table: the lease's pages first, the
+                # [B, n_tables] page table: the lease's pages first (in
+                # speculative mode its revocable draft pages after them, so
+                # the table covers the lane's whole write front), the
                 # lane's scratch page everywhere else (tail entries absorb
                 # post-end writes; their reads are masked)
                 table = np.empty((B, n_tables), np.int32)
                 for b, slot in enumerate(slots):
                     table[b, :] = scratch[b]
                     if slot is not None and slot.pages is not None:
-                        pg = slot.pages.pages
+                        pg = slot.pages.pages + slot.pages.draft
                         table[b, :len(pg)] = pg
                 extra = (lane("table", table),)
-            toks, prev, state = exe.fn(
-                model, state, lane("feed", feed), prev, pos,
-                lane("start", start), lane("active", active),
-                lane("fresh", fresh), *extra)
-            if self.on_tokens is not None:
-                # streaming: fetch this micro-run's block at the boundary
-                # and hand each live request its newly GENERATED tokens
-                # (prompt-echo steps belong to no stream); the fetched
-                # array replaces the device block in `outs`
-                toks = toks.cpu().numpy()
-                deltas: Dict[str, List[int]] = {}
-                for b, slot in enumerate(slots):
-                    if slot is None:
-                        continue
-                    first = slot.start + len(slot.req.prompt) - 1
-                    lo = max(pos, first)
-                    hi = min(pos + k - 1, slot.end_step)
-                    if lo <= hi:
-                        deltas[slot.req.request_id] = [
-                            int(t) for t in toks[lo - pos:hi - pos + 1, b]]
-                if deltas:
-                    self.on_tokens(deltas)
-            outs.append(toks)
+            if self.spec is not None:
+                self._spec_boundary(
+                    exe.fn(model, state, lane("feed", feed),
+                           torch.from_numpy(prev_host.copy()).to(device),
+                           pos, lane("start", start), lane("active", active),
+                           lane("fresh", fresh), *extra),
+                    slots, pos, feed, lives, feeds_n, prev_host, alloc)
+            else:
+                toks, prev, state = exe.fn(
+                    model, state, lane("feed", feed), prev, pos,
+                    lane("start", start), lane("active", active),
+                    lane("fresh", fresh), *extra)
+                if self.on_tokens is not None:
+                    # streaming: fetch this micro-run's block at the boundary
+                    # and hand each live request its newly GENERATED tokens
+                    # (prompt-echo steps belong to no stream); the fetched
+                    # array replaces the device block in `outs`
+                    toks = toks.cpu().numpy()
+                    deltas: Dict[str, List[int]] = {}
+                    for b, slot in enumerate(slots):
+                        if slot is None:
+                            continue
+                        first = slot.start + len(slot.req.prompt) - 1
+                        lo = max(pos, first)
+                        hi = min(pos + k - 1, slot.end_step)
+                        if lo <= hi:
+                            deltas[slot.req.request_id] = [
+                                int(t) for t in toks[lo - pos:hi - pos + 1, b]]
+                    if deltas:
+                        self.on_tokens(deltas)
+                outs.append(toks)
             self.micro_runs += 1
             self.steps += k
             self.slot_steps += k * B
@@ -478,10 +608,19 @@ class ContinuousScheduler:
             runs += 1
 
         # every admitted request ends inside the loop (admission bounds
-        # end_step < L and micro-runs tile [0, L)): drain the rest
+        # end_step < L and micro-runs tile [0, L)): drain the rest, except
+        # in speculative mode, where rollbacks can push end_step past the
+        # bucket: those requeue as continuations
+        requeues: List[DecodeRequest] = []
         for b, slot in enumerate(slots):
-            if slot is not None:
+            if slot is None:
+                continue
+            if self.spec is not None and slot.end_step >= pos:
+                self._park(slots, b, pos, freed_at, done, requeues)
+            else:
                 self._free(slots, b, pos, freed_at, done)
+        for cont in reversed(requeues):
+            pending.appendleft(cont)
         drain_cancels()   # marks set during the final micro-run
 
         # one fetch of the dispatch's tokens (waits for the device)
@@ -494,12 +633,18 @@ class ContinuousScheduler:
         self.dispatch_idle.append(idle_steps)
 
         results: Dict[str, RequestResult] = {}
-        for req, b, s in done:
-            first = s + len(req.prompt) - 1
+        for req, b, s, acc in done:
+            if acc is not None:
+                # speculative mode: the committed tokens, after whatever
+                # earlier continuation legs carried over
+                tokens = self._spec_carry.pop(req.request_id, []) + acc
+            else:
+                first = s + len(req.prompt) - 1
+                tokens = [int(t) for t in
+                          toks[first:first + req.max_new_tokens, b]]
             results[req.request_id] = RequestResult(
                 request_id=req.request_id,
-                tokens=[int(t) for t in
-                        toks[first:first + req.max_new_tokens, b]],
+                tokens=tokens,
                 bucket=bucket.label,
                 prefill_seconds=0.0,   # prefill is folded into the steps
                 total_seconds=t_total,
@@ -525,11 +670,60 @@ class ContinuousScheduler:
             m.prefix_hits = alloc.prefix_hits
         return results
 
+    def _spec_boundary(self, lanes, slots, pos, feed, lives, feeds_n,
+                       prev_host, alloc) -> None:
+        """Accept, commit and roll back one speculative micro-run.
+
+        ``lanes`` is the step's ``(verify, drafts, state)``; both token
+        lanes are fetched here, once. Step i consumed the right token iff
+        it was a prompt feed, the host's committed ``prev`` (i == 0), or
+        the draft agreed with the model at step i - 1; that is closed under
+        prefixes, so each lane accepts steps ``0..n-1``.
+        """
+        k = self.steps_per_dispatch
+        vt = lanes[0].cpu().numpy()
+        dt = lanes[1].cpu().numpy()
+        deltas: Dict[str, List[int]] = {}
+        for b, slot in enumerate(slots):
+            if slot is None:
+                continue
+            live = lives[b]
+            n = 0
+            for i in range(live):
+                if feed[i, b] >= 0 or i == 0 or dt[i - 1, b] == vt[i - 1, b]:
+                    n += 1
+                else:
+                    break
+            n_dec = live - feeds_n[b]
+            if n_dec > 0:
+                self.spec_verifies += 1
+                self.spec_draft_tokens += n_dec
+                self.spec_accepted_tokens += n - feeds_n[b]
+            first = slot.start + len(slot.req.prompt) - 1
+            new = [int(vt[i, b]) for i in range(n) if pos + i >= first]
+            slot.acc.extend(new)
+            prev_host[b] = vt[n - 1, b]
+            if n < live:
+                self.spec_rollbacks += 1
+            if alloc is not None and slot.pages is not None:
+                # resolve the draft pages against the committed cursor in
+                # the CURRENT local frame, before the start bump moves it
+                alloc.resolve_draft(slot.pages, pos - slot.start + n)
+            # the bump k - n advances the local cursor by exactly n:
+            # rejected steps replay next micro-run, and a fully accepted
+            # short lane (live < k) lands end_step at pos + k - 1, so it
+            # frees at the boundary
+            slot.start += k - n
+            if new:
+                deltas[slot.req.request_id] = new
+        if deltas and self.on_tokens is not None:
+            self.on_tokens(deltas)
+
     # -- observability --------------------------------------------------------
 
     def stats(self) -> Dict[str, object]:
         busy = self.slot_steps - self.idle_slot_steps
-        return {
+        out = {
             "dispatches": self.dispatches,
             "micro_runs": self.micro_runs,
             "steps_per_dispatch": self.steps_per_dispatch,
@@ -548,3 +742,20 @@ class ContinuousScheduler:
             if self.refills else 0.0,
             "max_refill_gap": self.max_refill_gap,
         }
+        if self.spec is not None:
+            out["spec"] = {
+                "spec_k": self.spec[0],
+                "draft_layers": self.spec[1],
+                "verifies": self.spec_verifies,
+                "draft_tokens": self.spec_draft_tokens,
+                "accepted_tokens": self.spec_accepted_tokens,
+                "rollbacks": self.spec_rollbacks,
+                "continuations": self.spec_continuations,
+                "partial_results": self.spec_partial_results,
+                # committed tokens per (lane, micro-run) verify event: above
+                # 1 means speculation beats one token at a time
+                "accepted_tokens_per_dispatch": round(
+                    self.spec_accepted_tokens / self.spec_verifies, 3)
+                if self.spec_verifies else 0.0,
+            }
+        return out

@@ -11,7 +11,10 @@ scheduler:
   request arriving during a dispatch joins it;
 * **tokens stream back per boundary** — the scheduler's ``on_tokens``
   hook fetches each micro-run's ``[k, slots]`` block and routes every
-  live request its newly generated tokens; ``stream()`` yields them;
+  live request its newly generated tokens; ``stream()`` yields them.
+  Under speculative lanes (``speculative=k`` on the batcher) a delta
+  carries only committed tokens, so a client never sees a token a
+  rollback would retract;
 * **client disconnect maps to cancellation** — a consumer that abandons
   its stream (``break``, task cancelled, ``aclose``) enqueues a cancel
   that :meth:`ServeBatcher.cancel` applies at the next boundary;

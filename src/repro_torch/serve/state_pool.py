@@ -8,13 +8,17 @@ resident per bucket and zeroes them in place on reuse.
     ... the steps write it in place ...
     pool.release(batch, max_len, state)
 
+Speculative mode (``spec=(spec_k, draft_layers)``) adds the draft's
+``draft_`` KV twins to every state; they are pooled and wiped like the
+target's leaves.
+
 Paged mode (``StatePool(plan, paged=(page_count, page_size))``) splits
 every state in two (see ``docs/memory_model.md``):
 
-* the **pool leaves** (``cache_k``/``cache_v``) are ONE shared physical
-  page pool ``[L, page_count, page_size, KV, hd]``, built once, shared by
-  every bucket and NEVER zeroed (zeroing would destroy prefix pages other
-  requests still reference). A host-side
+* the **pool leaves** (``cache_k``/``cache_v`` and their draft twins)
+  are ONE shared physical page pool ``[L, page_count, page_size, KV,
+  hd]``, built once, shared by every bucket and NEVER zeroed (zeroing
+  would destroy prefix pages other requests still reference). A host-side
   :class:`~repro_torch.serve.paging.PageAllocator` hands out page ids;
   stale page contents are harmless because a slot only reads positions
   its own steps (or a shared prefix) wrote;
@@ -57,9 +61,11 @@ class StatePool:
     """Pools of decode states, one per (batch, max_len) bucket. Fresh
     states come from the plan; the pool only tracks reuse."""
 
-    def __init__(self, plan, paged: Optional[Tuple[int, int]] = None):
+    def __init__(self, plan, paged: Optional[Tuple[int, int]] = None,
+                 spec: Optional[Tuple[int, int]] = None):
         self.plan = plan
         self.paged = tuple(paged) if paged else None
+        self.spec = tuple(spec) if spec else None
         self.allocator = None
         if self.paged is not None:
             from repro_torch.serve.paging import PageAllocator
@@ -89,7 +95,7 @@ class StatePool:
             leaves, self._pool_leaves = self._pool_leaves, None
         if leaves is None:
             leaves = self.plan.fresh_decode_state(*bucket, paged=self.paged,
-                                                  only="pool")
+                                                  only="pool", spec=self.spec)
         return leaves
 
     def acquire(self, batch: int, max_len: int) -> Dict[str, torch.Tensor]:
@@ -107,7 +113,8 @@ class StatePool:
         if state is None:
             only = "dense" if self.paged is not None else None
             state = self.plan.fresh_decode_state(batch, max_len,
-                                                 paged=self.paged, only=only)
+                                                 paged=self.paged, only=only,
+                                                 spec=self.spec)
         else:
             with torch.inference_mode():
                 for leaf in state.values():

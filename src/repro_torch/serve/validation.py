@@ -7,22 +7,11 @@ resolves the user-facing ``speculative=``/``draft=`` arguments through
 resolved tuple through :func:`validate_spec_geometry` /
 :func:`validate_paged_spec` (it can be constructed directly, so it must
 not trust its caller).
-
-Speculative lanes are not ported yet: :func:`resolve_speculative` keeps
-every check of the reference and then raises ``NotImplementedError`` for
-a non-zero ``speculative`` (they need ``DecoderLM.decode_block``, the
-block attention variants and the speculative branch of the scheduler).
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
-
-SPEC_NOT_PORTED = (
-    "speculative decode lanes are not ported yet (ROADMAP: the speculative "
-    "slice, next: DecoderLM.decode_block, the block and paged-block "
-    "attention variants, the speculative branches of the masked step and "
-    "the scheduler)")
 
 
 def validate_spec_geometry(spec: Tuple[int, int],
@@ -65,13 +54,15 @@ def validate_paged_spec(spec: Tuple[int, int], paged: Tuple[int, int],
 def resolve_speculative(speculative: int, draft: Optional[str], *,
                         schedule: str, steps_per_dispatch: int,
                         n_layers: int) -> Optional[Tuple[int, int]]:
-    """Resolve the batcher's ``speculative=``/``draft=`` arguments.
+    """Resolve the batcher's ``speculative=``/``draft=`` arguments into a
+    ``(spec_k, draft_layers)`` tuple, or None without ``speculative``.
 
     ``draft`` names the draft model — ``"prefix:N"`` runs the first N
     layers of the target as a self-speculative draft (default: half the
     stack). Raises ValueError on every invalid combination, with the
-    reference's messages; returns None without ``speculative`` and raises
-    ``NotImplementedError`` for a valid one (:data:`SPEC_NOT_PORTED`).
+    reference's messages. The reference also rejects a family without a
+    block-verify decode; the port builds only the dense decoder LM, which
+    has one.
     """
     if draft is not None and not speculative:
         raise ValueError(
@@ -96,4 +87,4 @@ def resolve_speculative(speculative: int, draft: Optional[str], *,
     if not 1 <= draft_layers <= n_layers:
         raise ValueError(
             f"draft depth must be in [1, {n_layers}], got {draft_layers}")
-    raise NotImplementedError(SPEC_NOT_PORTED)
+    return (speculative, draft_layers)

@@ -20,12 +20,19 @@ the port's continuous path flips it at some admission offsets; and
 clears 0.02, so those are the only tokens left out: 31 of the parity
 trace's 32 and 14 of the shared trace's 20 (``assert_streams`` returns
 the count).
+
+Speculative streams are held against the reference's speculative streams
+in the same mode, with the gaps of a JAX loop teacher-forced along them.
+The reference's own speculative trace is not tie-free either: ``g2``'s
+fourth token is a 0.0009 tie (23 over 22) under the loop from position
+0, which the reference's speculative lanes follow while its plain
+continuous path, at another absolute position, flips it.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import jax
 import jax.numpy as jnp
@@ -49,6 +56,15 @@ SHARED_TRACE = [
     [("s0", SYSTEM + [63, 51], 6), ("s1", SYSTEM + [33, 17, 9], 5)],
     [("s2", SYSTEM + [12], 4), ("s3", SYSTEM + [44, 2], 5)],
 ]
+
+
+# tests/test_speculative.py: six requests through one 32 x 2 bucket
+SPEC_TRACE = [
+    (f"g{i}", [2 + (7 * i + 13 * j) % 50 for j in range(2 + i % 3)],
+     4 + i % 4)
+    for i in range(6)
+]
+SPEC_BUCKET = (32, 2)          # (max_len, batch)
 
 
 def waves(trace) -> List[List[Tuple[str, List[int], int]]]:
@@ -82,33 +98,21 @@ def arrays(seed: int):
     return jax.tree.map(np.asarray, jax_params(seed))
 
 
-@functools.lru_cache(maxsize=None)
-def jax_reference(seed: int, quantized: bool, trace_name: str):
-    """``(tokens, gaps)`` of the reference on a trace: the JAX fifo
-    batcher's streams (one wave after another) and, per request, the top-2
-    logit gap at every generated step of a JAX greedy loop from
-    position 0."""
-    from repro.launch.mesh import make_debug_mesh
+def _jax_gaps(seed: int, quantized: bool, trace,
+              forced: Optional[Dict[str, List[int]]] = None
+              ) -> Dict[str, List[float]]:
+    """Per request, the top-2 logit gap at every generated step of a JAX
+    greedy loop over ``decode_step`` from position 0, one request at a
+    time; with ``forced`` the loop follows those streams instead of its
+    own argmax."""
     from repro.models import build_model
     from repro.plan import MeshSpec, build_plan
-    from repro.serve import DecodeRequest, ServeBatcher
 
-    trace = {"parity": PARITY_TRACE, "shared": SHARED_TRACE}[trace_name]
-    cfg, params = jax_cfg(), jax_params(seed)
-    tokens: Dict[str, List[int]] = {}
-    mesh = make_debug_mesh(1, 1)
-    with mesh:
-        b = ServeBatcher(cfg, mesh, quantized=quantized).load_params(params)
-        for wave in waves(trace):
-            for rid, p, n in wave:
-                b.submit(DecodeRequest(rid, p, max_new_tokens=n))
-            tokens.update({r: v.tokens for r, v in b.run().items()})
-
-    plan = build_plan(cfg, None, mesh_spec=MeshSpec.debug(1, 1),
+    plan = build_plan(jax_cfg(), None, mesh_spec=MeshSpec.debug(1, 1),
                       quantized=quantized)
     gaps: Dict[str, List[float]] = {}
     with plan.activate():
-        sparams = plan.shard_params(params)
+        sparams = plan.shard_params(jax_params(seed))
         step = jax.jit(build_model(plan.cfg).decode_step)
         for wave in waves(trace):
             for rid, prompt, n in wave:
@@ -123,8 +127,57 @@ def jax_reference(seed: int, quantized: bool, trace_name: str):
                     tok = int(np.argmax(np.asarray(logits[0])))
                     if i >= len(prompt) - 1:
                         g.append(float(lg[-1] - lg[-2]))
+                        if forced is not None:
+                            tok = forced[rid][len(g) - 1]
                 gaps[rid] = g
-    return tokens, gaps
+    return gaps
+
+
+@functools.lru_cache(maxsize=None)
+def jax_reference(seed: int, quantized: bool, trace_name: str):
+    """``(tokens, gaps)`` of the reference on a trace: the JAX fifo
+    batcher's streams (one wave after another) and, per request, the top-2
+    logit gap at every generated step of a JAX greedy loop from
+    position 0."""
+    from repro.launch.mesh import make_debug_mesh
+    from repro.serve import DecodeRequest, ServeBatcher
+
+    trace = {"parity": PARITY_TRACE, "shared": SHARED_TRACE}[trace_name]
+    cfg, params = jax_cfg(), jax_params(seed)
+    tokens: Dict[str, List[int]] = {}
+    mesh = make_debug_mesh(1, 1)
+    with mesh:
+        b = ServeBatcher(cfg, mesh, quantized=quantized).load_params(params)
+        for wave in waves(trace):
+            for rid, p, n in wave:
+                b.submit(DecodeRequest(rid, p, max_new_tokens=n))
+            tokens.update({r: v.tokens for r, v in b.run().items()})
+    return tokens, _jax_gaps(seed, quantized, trace)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_spec_reference(seed: int, quantized: bool, k: int, paged: bool,
+                       draft: Optional[str], trace: Tuple):
+    """``(tokens, spec stats, gaps)`` of the reference's speculative
+    continuous batcher on ``trace`` (a tuple of ``(id, prompt tuple,
+    n)``) through the 32 x 2 bucket, k = ``steps_per_dispatch``, paged
+    with 4-token pages; the gaps follow the reference's own streams."""
+    from repro.launch.mesh import make_debug_mesh
+    from repro.serve import Bucket, BucketPolicy, DecodeRequest, ServeBatcher
+
+    max_len, batch = SPEC_BUCKET
+    mesh = make_debug_mesh(1, 1)
+    with mesh:
+        b = ServeBatcher(jax_cfg(), mesh, quantized=quantized,
+                         policy=BucketPolicy([Bucket(max_len, batch)]),
+                         schedule="continuous", steps_per_dispatch=k,
+                         paged=4 if paged else None, speculative=k,
+                         draft=draft).load_params(jax_params(seed))
+        for rid, p, n in trace:
+            b.submit(DecodeRequest(rid, list(p), max_new_tokens=n))
+        tokens = {r: v.tokens for r, v in b.run().items()}
+    return (tokens, b.scheduler.stats()["spec"],
+            _jax_gaps(seed, quantized, list(trace), forced=tokens))
 
 
 def assert_streams(got: Dict[str, Sequence[int]], want: Dict[str, List[int]],

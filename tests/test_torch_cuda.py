@@ -240,7 +240,7 @@ _TRACE = [("p0", [63, 51, 50], 7), ("p1", [33, 17, 32], 5),
 _CARD_MIN_GAP = 0.05
 
 
-def _continuous(device, quantized, paged, state_dict):
+def _continuous(device, quantized, paged, state_dict, speculative=0):
     from repro_torch.models import build_model
     from repro_torch.plan import build_plan
     from repro_torch.serve import DecodeRequest
@@ -252,7 +252,7 @@ def _continuous(device, quantized, paged, state_dict):
     model.load_state_dict(state_dict)
     plan.load_params(model)
     b = plan.make_batcher(schedule="continuous", steps_per_dispatch=4,
-                          paged=paged)
+                          paged=paged, speculative=speculative)
     for rid, p, n in _TRACE:
         b.submit(DecodeRequest(rid, p, max_new_tokens=n))
     return b, {r: v.tokens for r, v in b.run().items()}
@@ -271,13 +271,22 @@ def test_continuous_serving_on_card_equals_cpu(cuda, quantized, paged):
     cfg = reduced_config("yi-6b").with_(n_layers=2, vocab=64)
     weights = build_model(cfg, device="cpu").init_params(0).state_dict()
     cpu_b, want = _continuous("cpu", quantized, paged, weights)
-    # the CPU run's own gaps: a greedy loop from position 0 per request
-    model = cpu_b.plan.model
     before = ops.launches
     card_b, got = _continuous("cuda", quantized, paged, weights)
     torch.cuda.synchronize()
     runs = card_b.scheduler.stats()["micro_runs"]
     assert ops.launches - before == (3 * 4 * runs if quantized else 0)
+    _hold_to_cpu_run(cpu_b.plan.model, got, want)
+    if paged:
+        s = card_b.stats()["paged"]
+        assert s["pages_in_use"] == s["scratch_pages"] + s["prefix_entries"]
+
+
+def _hold_to_cpu_run(model, got, want, forced=False):
+    """Every card stream has its length and equals the CPU run's up to the
+    first step whose gap, in a CPU greedy loop from position 0 per request
+    (teacher-forced along the CPU run's streams with ``forced``), is under
+    ``_CARD_MIN_GAP``."""
     compared = 0
     for rid, prompt, n in _TRACE:
         state = model.decode_state(1, 64)
@@ -290,11 +299,57 @@ def test_continuous_serving_on_card_equals_cpu(cuda, quantized, paged):
             tok = int(top.indices[0])
             if i >= len(prompt) - 1:
                 gaps.append(float(top.values[0] - top.values[1]))
+                if forced:
+                    tok = want[rid][len(gaps) - 1]
         m = next((i for i, g in enumerate(gaps) if g < _CARD_MIN_GAP), n)
         assert len(got[rid]) == n
         assert got[rid][:m] == want[rid][:m], (rid, got[rid], want[rid])
         compared += m
     assert compared >= 20
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("quantized", [False, True],
+                         ids=["float", "quantized"])
+def test_speculative_serving_on_card_equals_cpu(cuda, quantized, paged):
+    """The reduced config's speculative run (k = 4, the default one-layer
+    draft) on the card gives its CPU run's tokens, and launches qmatmul
+    4 x (1 + 1) + 3 times per micro-run when quantized."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import build_model
+
+    cfg = reduced_config("yi-6b").with_(n_layers=2, vocab=64)
+    weights = build_model(cfg, device="cpu").init_params(0).state_dict()
+    cpu_b, want = _continuous("cpu", quantized, paged, weights, 4)
+    before = ops.launches
+    card_b, got = _continuous("cuda", quantized, paged, weights, 4)
+    torch.cuda.synchronize()
+    st = card_b.scheduler.stats()
+    assert ops.launches - before == (11 * st["micro_runs"] if quantized
+                                     else 0)
+    assert st["spec"]["verifies"] > 0
+    _hold_to_cpu_run(cpu_b.plan.model, got, want, forced=True)
     if paged:
         s = card_b.stats()["paged"]
         assert s["pages_in_use"] == s["scratch_pages"] + s["prefix_entries"]
+
+
+@pytest.mark.parametrize("K,N,dt_a,dt_b", _LM_SHAPES)
+@pytest.mark.parametrize("plan", ["auto", "one", "split"])
+def test_qmatmul_m32_verify_shapes_equal_plain(cuda, K, N, dt_a, dt_b, plan):
+    """M = 32 (the speculative verify: 8 slots x 4 positions) at both LM
+    shapes, over the full int16 range, under the auto plan, with one split
+    of K and with several."""
+    M = 32
+    rng = np.random.default_rng(K + N + M)
+    lo = -(2 ** 15) if dt_a == "int16" else -128
+    x = torch.from_numpy(rng.integers(lo, -lo, (M, K)).astype(dt_a)).to(cuda)
+    w = _rand(rng, (K, N), dt_b, cuda)
+    auto = ops.plan(M, K, N, torch.cuda.get_device_properties(0)
+                    .multi_processor_count)
+    p = {"auto": auto, "one": ops.Plan(auto.block_m, 1, K),
+         "split": ops.Plan(auto.block_m, 4, K // 4)}[plan]
+    for shift in (2, 7, 10):
+        kw = dict(shift=shift, out_dtype="int16")
+        assert torch.equal(ops.qlinear_planned(x, w, None, p, **kw),
+                           qlinear_ref(x, w, None, **kw))

@@ -325,15 +325,24 @@ def test_only_the_dense_yi_6b_is_ported(tcfg):
 
 
 def test_serving_features_not_ported_raise():
-    """Only the speculative lanes are left: they raise, naming the slice
-    that ports them; continuous, paged and admission policies build."""
+    """Every serving feature of the reference builds, the speculative lanes
+    too: the default draft is half the stack, the spec joins the step's
+    cache key, and a bad geometry fails with the reference's messages."""
     plan = build_plan("yi-6b", None, debug=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="speculative slice"):
-        plan.make_batcher(schedule="continuous", steps_per_dispatch=4,
+    b = plan.make_batcher(schedule="continuous", steps_per_dispatch=4,
                           speculative=4)
-    with pytest.raises(NotImplementedError, match="speculative slice"):
-        plan.serve_executable("masked_decode", batch=2, max_len=64,
-                              spec=(1, 1))
+    assert b.spec == b.scheduler.spec == b.pool.spec == (4, 2)
+    exe = plan.serve_executable("masked_decode", batch=2, max_len=64,
+                                spec=(1, 1))
+    assert exe.key.spec == (1, 1) and exe.fn
+    assert plan.serve_executable("masked_decode", batch=2,
+                                 max_len=64).key.spec == ()
+    for kw, msg in ((dict(spec=(2, 1)), "must equal"),
+                    (dict(spec=(1, 5)), "draft_layers"),
+                    (dict(kind="decode", spec=(1, 1)), "masked_decode")):
+        kw.setdefault("kind", "masked_decode")
+        with pytest.raises(ValueError, match=msg):
+            plan.serve_executable(batch=2, max_len=64, **kw)
     for kw in (dict(schedule="continuous"),
                dict(schedule="continuous", paged=True),
                dict(schedule="continuous", admission=object())):
@@ -400,9 +409,11 @@ def test_serve_cli_on_the_cpu(capsys):
     main(["--arch", "yi-6b", "--debug", "--tokens", "2", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "hits=2" in out and "builds=2" in out
-    with pytest.raises(NotImplementedError, match="speculative slice"):
-        main(["--arch", "yi-6b", "--debug", "--device", "cpu", "--schedule",
-              "continuous", "--speculative", "1"])
+    main(["--arch", "yi-6b", "--debug", "--device", "cpu", "--schedule",
+          "continuous", "--speculative", "1", "--tokens", "2"])
+    out = capsys.readouterr().out
+    assert "speculative: k=1 draft_layers=2," in out
+    assert out.rstrip().endswith("builds=1")
 
 
 def test_state_pool_zeroes_on_reuse_and_wipes_slots(tmodel):

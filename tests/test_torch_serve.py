@@ -324,6 +324,8 @@ class HostStep:
 
 
 class HostPlan:
+    device = torch.device("cpu")
+
     def __init__(self, page_size=0):
         self.steps = {}
         self.page_size = page_size
@@ -412,6 +414,17 @@ def test_scheduler_invariants_seeded_streams(seed, k, paged):
     assert sched.cancellations == len(canceled)
     admits = [e.request_id for e in sched.events if e.kind == "admit"]
     assert len(admits) == len(set(admits))
+
+
+def test_scheduler_needs_the_plan_device():
+    """The lane schedules go to the plan's device; a plan that names none
+    is refused, never run on a default device."""
+    class NoDevicePlan(HostPlan):
+        device = None
+
+    with pytest.raises(ValueError, match="no device"):
+        ContinuousScheduler(NoDevicePlan(), BucketPolicy([Bucket(64, 2)]),
+                            HostPool(), steps_per_dispatch=2)
 
 
 def test_fifo_order_preserved_for_capacity_skips():
@@ -506,28 +519,41 @@ def test_generate_traffic_matches_reference(seed):
 
 
 # ---------------------------------------------------------------------------
-# validation: speculative raises, naming the next slice
+# validation: the speculative lanes build, and fail as the reference does
 # ---------------------------------------------------------------------------
 
 
 def test_speculative_raises_naming_the_next_slice():
+    """Every speculative entry point builds (batcher, plan step, masked
+    step, scheduler, dense and paged) and resolves ``(spec_k,
+    draft_layers)``; invalid combinations fail with the reference's
+    messages, the batcher's, the scheduler's and the resolver's alike."""
     plan = build_plan(torch_cfg(), None, device="cpu")
-    with pytest.raises(NotImplementedError, match="speculative slice"):
-        plan.make_batcher(schedule="continuous", steps_per_dispatch=4,
+    b = plan.make_batcher(schedule="continuous", steps_per_dispatch=4,
                           speculative=4, draft="prefix:1")
-    with pytest.raises(NotImplementedError, match="speculative slice"):
-        plan.serve_executable("masked_decode", batch=2, max_len=64,
-                              steps_per_dispatch=4, spec=(4, 1))
-    with pytest.raises(NotImplementedError, match="speculative slice"):
-        make_masked_decode_step(torch_cfg(), 2, 64, steps_per_dispatch=4,
-                                spec=(4, 1))
+    assert b.spec == (4, 1) and b.scheduler.spec == (4, 1)
+    assert plan.serve_executable("masked_decode", batch=2, max_len=64,
+                                 steps_per_dispatch=4,
+                                 spec=(4, 1)).key.spec == (4, 1)
+    assert callable(make_masked_decode_step(torch_cfg(), 2, 64,
+                                            steps_per_dispatch=4,
+                                            spec=(4, 1)))
     policy = BucketPolicy([Bucket(64, 2)])
-    with pytest.raises(NotImplementedError, match="speculative slice"):
-        ContinuousScheduler(HostPlan(), policy, HostPool((20, 16)),
-                            steps_per_dispatch=4, spec=(4, 1))
+    sched = ContinuousScheduler(HostPlan(), policy, HostPool((20, 16)),
+                                steps_per_dispatch=4, spec=(4, 1))
+    assert sched.stats()["spec"]["draft_layers"] == 1
     with pytest.raises(ValueError, match="must equal"):
         ContinuousScheduler(HostPlan(), policy, HostPool(),
                             steps_per_dispatch=4, spec=(2, 1))
+    with pytest.raises(ValueError, match="draft_layers must be >= 1"):
+        ContinuousScheduler(HostPlan(), policy, HostPool(),
+                            steps_per_dispatch=4, spec=(4, 0))
+    with pytest.raises(ValueError, match="page_count"):
+        ContinuousScheduler(HostPlan(), policy, HostPool((7, 16)),
+                            steps_per_dispatch=4, spec=(4, 1))
+    with pytest.raises(ValueError, match="page_count"):
+        plan.make_batcher(schedule="continuous", steps_per_dispatch=2,
+                          speculative=2, paged=(2, 8))
     # the reference's checks still come first
     for kw, msg in ((dict(schedule="fifo"), "continuous"),
                     (dict(steps_per_dispatch=2), "must equal"),
@@ -541,6 +567,12 @@ def test_speculative_raises_naming_the_next_slice():
     with pytest.raises(ValueError, match="draft only applies"):
         resolve_speculative(0, "prefix:1", schedule="continuous",
                             steps_per_dispatch=4, n_layers=2)
+    assert resolve_speculative(0, None, schedule="continuous",
+                               steps_per_dispatch=4, n_layers=2) is None
+    for draft, layers in ((None, 1), ("prefix:2", 2)):
+        assert resolve_speculative(4, draft, schedule="continuous",
+                                   steps_per_dispatch=4,
+                                   n_layers=2) == (4, layers)
     for kw, msg in ((dict(steps_per_dispatch=4), "continuous"),
                     (dict(admission=make_policy("edf")), "continuous"),
                     (dict(schedule="continuous", steps_per_dispatch=0),
@@ -695,7 +727,13 @@ def test_serve_cli_continuous_paged_edf_stream(capsys):
     hits = re.search(r"(\d+) prefix hits", out)
     assert hits and int(hits.group(1)) > 0
     assert re.search(r"hits=[1-9]\d* misses=1 builds=1$", out.rstrip())
-    with pytest.raises(NotImplementedError, match="speculative slice"):
-        main(["--arch", "yi-6b", "--debug", "--device", "cpu", "--schedule",
-              "continuous", "--steps-per-dispatch", "4", "--speculative",
-              "4", "--draft", "prefix:1"])
+    main(["--arch", "yi-6b", "--debug", "--device", "cpu", "--schedule",
+          "continuous", "--steps-per-dispatch", "4", "--speculative", "4",
+          "--draft", "prefix:1", "--tokens", "6", "--rounds", "3"])
+    out = capsys.readouterr().out
+    waves = [ln for ln in out.splitlines() if ln.startswith("wave ")]
+    assert len(waves) == 3 and all("'builds': 1," in w for w in waves)
+    assert len({w.split("-> ")[1].split(";")[0] for w in waves}) == 1
+    acc = re.search(r"speculative: k=4 draft_layers=1, (\d+)/(\d+) draft "
+                    r"tokens accepted", out)
+    assert acc and 0 < int(acc.group(1)) <= int(acc.group(2))
