@@ -37,7 +37,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    parameters, random bf16 weights from seed 0) through the plan's
    ``executable("prefill")`` on tokens [2, 2048] from numpy seed 0 (cut to
    batch and sequence only). The flash counter must grow by 32 per call,
-   the logits must be finite and agree with the same forward through the
+   each launch within the bf16 flash tolerance of the plain attention on
+   its own inputs, and the logits must be finite and agree with the same
+   forward through the
    plain chunked attention (``USE_FLASH_KERNEL = False``) within the
    tolerances of ``PREFILL_TOL``.
 7. Fifo serving at full width with ``quantized=True``: one bucket of batch 4
@@ -89,12 +91,41 @@ Phases, each of which fails the run (non-zero exit, no result line):
    to the first token and outcomes, and one speculative micro-run's host
    time and device split, paged and dense.
 
+11. The hybrid family at full width: zamba2-2.7b (54 Mamba2 layers in 9
+   groups of 6 and one weight-shared attention block after each group,
+   d_model 2560, 32 heads of dim 80, random bf16 weights from seed 0; the
+   yi-6b model is freed first). Prefill [2, 2048] through the plan's
+   ``executable("prefill")``: flash must launch exactly 9 times per call
+   (one per call site, head dim 80), each launch within the bf16 flash
+   tolerance of the plain attention on its own inputs. The random Mamba2
+   stack is chaotic (a 2**-8 relative noise on the embeddings decorrelates
+   its full-depth logits), so the full-depth flash-vs-plain logits are
+   printed beside that noise, and ``PREFILL_TOL`` holds the model cut to
+   its first group, with flash and without (phase 6 runs the per-launch
+   check too). Then quantized continuous serving, bucket 8 x 512, k = 4:
+   one paged wave and one dense wave of the same 12 requests (42-48
+   prompt tokens drawn apart, so no two share a full page,
+   ``max_new_tokens`` staggered over 4-24), each counted from zero:
+   qmatmul must launch 10 x 4 per micro-run (the LM head and the shared
+   block's down-projection at 9 call sites) and flash never; the scheduler
+   must refill slots; every stream is held, by phase 9's gap rule, to a
+   plain greedy loop over ``HybridModel.decode_step`` replayed after the
+   wave at the positions each request ran at, in batches of 8 (so every
+   product rounds as in the step); after the paged wave the pages in use
+   must be the scratch pages and the prefix entries. Prints a ``hybrid
+   micro-run`` line with the profiler split. Phase 2 also holds
+   qmatmul at the hybrid's two decode shapes (8x2560x32000 int8 and
+   8x10240x2560 a16w8) with split-K on and off, and phase 5 holds flash at
+   head dim 80 (the reference grid in fp32 and bf16, and the path shape
+   [2*32, 2048, 80] bf16 causal), timed in phase 8.
+
 The last two lines are the ``kernels`` JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -141,15 +172,20 @@ LM_QMATMUL = [(4, 4096, 64000, "int8", "int8", "int16"),
               (4, 11008, 4096, "int16", "int8", "int16")]
 LM_QMATMUL_M8 = [(8,) + s[1:] for s in LM_QMATMUL]
 LM_QMATMUL_M32 = [(32,) + s[1:] for s in LM_QMATMUL]
-LM_SHAPES = LM_QMATMUL + LM_QMATMUL_M8 + LM_QMATMUL_M32
+# zamba2's quantized decode step at batch 8 (phase 11): the int8 LM head
+# and the shared block's a16w8 down-projection
+HYBRID_QMATMUL = [(8, 2560, 32000, "int8", "int8", "int16"),
+                  (8, 10240, 2560, "int16", "int8", "int16")]
+LM_SHAPES = LM_QMATMUL + LM_QMATMUL_M8 + LM_QMATMUL_M32 + HYBRID_QMATMUL
 
 # decode-sized M for the 16-row tile and split-K: (M, K, N)
 SMALL_M_SHAPES = [(M, K, 300) for M in (1, 4, 16, 17) for K in (70, 11008)]
 
 # flash cases (BH, Sq, Sk, hd, dtype, causal, q_start, x100): the grid of
 # tests/test_flash_attention.py, its block sweep as shapes, the ragged
-# q_start case, the whole grid again in bf16, bf16 at every head dim, and
-# the yi-6b path shape
+# q_start case, the whole grid again in bf16, bf16 at every head dim, the
+# grid at zamba2's head dim 80 in fp32 and bf16, and the two LM path
+# shapes
 _FLASH_GRID = (
     [(2, s, s, hd, "fp32", c, 0, False)
      for s, hd in ((32, 16), (64, 8), (128, 32), (96, 16))
@@ -163,10 +199,12 @@ _FLASH_GRID = (
 FLASH_CASES = (
     _FLASH_GRID
     + [c[:4] + ("bf16",) + c[5:] for c in _FLASH_GRID if c[4] == "fp32"]
-    + [case for hd in (8, 16, 32, 64, 128)
+    + [case for hd in (8, 16, 32, 64, 80, 128)
        for case in ((3, 77, 77, hd, "bf16", True, 0, False),
                     (2, 48, 64, hd, "bf16", True, 16, False),
                     (2, 96, 96, hd, "bf16", False, 0, False))]
+    + [c[:3] + (80, dtype) + c[5:] for c in _FLASH_GRID if c[4] == "fp32"
+       for dtype in ("fp32", "bf16")]
 )
 FLASH_TOL = {"fp32": dict(atol=2e-5, rtol=2e-5), "bf16": dict(atol=2e-2,
                                                               rtol=0.0)}
@@ -179,6 +217,12 @@ FLASH_PATH = (PREFILL_BATCH * 32, PREFILL_SEQ, PREFILL_SEQ, 128, "bf16",
 # only in where the probabilities round (bf16 before PV in the plain path),
 # so logits agree to bf16 noise
 PREFILL_TOL = dict(mean_abs=0.02, max_abs=0.5, argmax_agree=0.99)
+# phase 11: zamba2 at full width, its prefill shape through flash (one
+# launch per shared-block call site)
+HYBRID_ARCH = "zamba2-2.7b"
+FLASH_PATH_HYBRID = (PREFILL_BATCH * 32, PREFILL_SEQ, PREFILL_SEQ, 80,
+                     "bf16", True, 0, False)
+HYBRID_PROMPT = (42, 48)      # prompt lengths: phase 9's 40 + 2-8
 SERVE_BATCH, SERVE_MAX_LEN, SERVE_TOKENS, SERVE_WAVES = 4, 256, 8, 2
 # phase 9: continuous serving; streams are held to the plain loop up to the
 # first step whose top-2 logit gap is under CONT_MIN_GAP (random
@@ -525,51 +569,93 @@ def device_busy_ms(split):
     return split["flash_ms"] + split["qmatmul_ms"] + split["other_device_ms"]
 
 
-def run_prefill(dev, flash_ops, attention):
-    """Phase 6: yi-6b forward at full width through the flash kernel."""
+def check_unbuilt_head_dim(dev, flash_ops, attention, hd=96):
+    """``mha`` routes a prefill at any ``hd % 8 == 0`` (the reference's
+    rule) to the flash wrapper; at a head dim the kernel is not built for,
+    the wrapper must raise on the card, not give way to the plain
+    attention."""
+    if hd in flash_ops.HEAD_DIMS:
+        raise AssertionError(f"head dim {hd} is built; pick another")
+    q, k, v = (torch.randn(2, 40, h, hd, device=dev, dtype=torch.bfloat16)
+               for h in (4, 2, 2))
+    before = flash_ops.launches
+    try:
+        attention.mha(q, k, v, causal=True)
+    except ValueError as e:
+        if flash_ops.launches != before:
+            raise AssertionError("flash launched at an unbuilt head dim")
+        print(f"mha at unbuilt head dim {hd} on the card raises: {e}")
+        return
+    raise AssertionError(f"mha at unbuilt head dim {hd} ran on the card")
+
+
+def attention_sites(cfg):
+    """Self-attention calls per forward: every layer of the dense LM, one
+    per group (the shared block) of the hybrid."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    return cfg.n_layers
+
+
+def run_prefill(dev, flash_ops, attention, arch="yi-6b"):
+    """Phases 6 and 11: a forward at full width through the flash
+    kernel."""
     from repro_torch.models.base import ShapeSpec
     from repro_torch.plan import build_plan
 
     shape = ShapeSpec(f"prefill_{PREFILL_BATCH}x{PREFILL_SEQ}", PREFILL_SEQ,
                       PREFILL_BATCH, "prefill")
-    plan = build_plan("yi-6b", shape, device=dev)
+    plan = build_plan(arch, shape, device=dev)
     cfg = plan.cfg
     t0 = time.perf_counter()
     model = plan.init_params(seed=0)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"yi-6b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.n_heads} heads (kv {cfg.n_kv}), d_ff {cfg.d_ff}, vocab "
-          f"{cfg.vocab}: {n_params / 1e9:.3f} B parameters, "
+    print(f"{cfg.name}: {cfg.n_layers} layers"
+          + (f" in {attention_sites(cfg)} groups with one shared attention "
+             f"block, ssm state {cfg.ssm_state}, ssm head dim "
+             f"{cfg.ssm_head_dim}" if cfg.family == "hybrid" else "")
+          + f", d_model {cfg.d_model}, {cfg.n_heads} heads (kv {cfg.n_kv}, "
+          f"head dim {cfg.head_dim}), d_ff {cfg.d_ff}, vocab {cfg.vocab}: "
+          f"{n_params} = {n_params / 1e9:.3f} B parameters, "
           f"{sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9:.2f}"
           f" GB, init {time.perf_counter() - t0:.1f} s")
     prefill = plan.executable("prefill")
     batch = {"tokens": torch.from_numpy(
         lm_tokens(cfg.vocab, (PREFILL_BATCH, PREFILL_SEQ), 0)).to(dev)}
 
+    sites = attention_sites(cfg)
+    site_errs = []
     flash_ops.launches = 0
-    logits = prefill.fn(model, batch)
+    with held_sites(attention, site_errs):
+        logits = prefill.fn(model, batch)
     torch.cuda.synchronize()
     launches = flash_ops.launches
-    if launches != cfg.n_layers:
+    if launches != sites or len(site_errs) != sites:
         raise AssertionError(f"flash launched {launches} times in one "
-                             f"forward, expected {cfg.n_layers}")
+                             f"{cfg.name} forward, expected {sites}")
     if logits.shape != (PREFILL_BATCH, PREFILL_SEQ, cfg.vocab) \
             or not torch.isfinite(logits).all():
         raise AssertionError(f"bad prefill logits {tuple(logits.shape)}")
-    attention.USE_FLASH_KERNEL = False
-    try:
-        plain = prefill.fn(model, batch)
-    finally:
-        attention.USE_FLASH_KERNEL = True
+    print(f"prefill {cfg.name} [{PREFILL_BATCH}, {PREFILL_SEQ}]: {launches} "
+          f"flash launches == attention sites x 1 call; logits finite; "
+          f"each site's flash output vs the plain attention on its own "
+          f"inputs: max |diff| {max(site_errs):.6f} (tolerance "
+          f"{FLASH_TOL['bf16']})")
+    plain = plain_forward(model, batch, attention)
     agree = prefill_agreement(logits, plain)
+    line = (f"vs plain chunked attention: mean |diff| {agree['mean_abs']:.6f}"
+            f", max |diff| {agree['max_abs']:.6f}, argmax agreement "
+            f"{agree['argmax_agree']:.6f} at {agree['robust_positions']} "
+            f"positions with top-2 gap > 0.1")
+    if cfg.family == "hybrid":
+        # the random hybrid stack amplifies any rounding difference (see
+        # hybrid_agreement); the logits are held on its first group
+        agree = hybrid_agreement(model, batch, attention, plain, agree,
+                                 line)
+    else:
+        print(f"prefill {cfg.name}: logits {line} (tolerance {PREFILL_TOL})")
     del plain
-    print(f"prefill [{PREFILL_BATCH}, {PREFILL_SEQ}]: {launches} flash "
-          f"launches == layers x 1 call; logits finite; vs plain chunked "
-          f"attention: mean |diff| {agree['mean_abs']:.6f}, max |diff| "
-          f"{agree['max_abs']:.6f}, argmax agreement "
-          f"{agree['argmax_agree']:.6f} at {agree['robust_positions']} "
-          f"positions with top-2 gap > 0.1 (tolerance {PREFILL_TOL})")
     if not (agree["mean_abs"] <= PREFILL_TOL["mean_abs"]
             and agree["max_abs"] <= PREFILL_TOL["max_abs"]
             and agree["argmax_agree"] >= PREFILL_TOL["argmax_agree"]):
@@ -585,6 +671,99 @@ def run_prefill(dev, flash_ops, attention):
     return model, dict(launches=launches, agreement=agree,
                        median_ms=statistics.median(lat), latencies_ms=lat,
                        split=split)
+
+
+@contextlib.contextmanager
+def held_sites(attention, errs):
+    """Within the block, every flash call of a forward is also run through
+    its plain version on the same inputs, and the largest difference per
+    call is appended to ``errs``; a call outside ``FLASH_TOL`` raises. The
+    plain version launches no kernel, so the launch count is the path's."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    real = attention.flash_attention
+
+    def checked(q, k, v, *, causal=True, q_start=0, **kw):
+        o = real(q, k, v, causal=causal, q_start=q_start, **kw)
+        want = attention_ref(q, k, v, causal=causal, q_start=q_start)
+        errs.append(float((o.float() - want.float()).abs().max()))
+        torch.testing.assert_close(o.float(), want.float(),
+                                   **FLASH_TOL["bf16"])
+        return o
+
+    attention.flash_attention = checked
+    try:
+        yield
+    finally:
+        attention.flash_attention = real
+
+
+def plain_forward(model, batch, attention):
+    """The same forward with the flash switch off (plain chunked
+    attention)."""
+    attention.USE_FLASH_KERNEL = False
+    try:
+        with torch.inference_mode():
+            return model(batch)
+    finally:
+        attention.USE_FLASH_KERNEL = True
+
+
+def hybrid_agreement(model, batch, attention, plain, full_agree, line):
+    """The hybrid's flash-vs-plain logits, held on its first group.
+
+    With random weights the Mamba2 stack is chaotic: the bf16 rounding
+    difference of the first call site grows layer by layer, and a 2**-8
+    relative noise on the embeddings alone moves the full-depth logits
+    further than flash does. That is checked here: the noise yardstick's
+    mean |diff| must exceed flash's at full depth (``full_agree``), or the
+    call raises. So the full depth is printed beside that yardstick, and
+    PREFILL_TOL holds the same model cut to its first group (6 Mamba2
+    layers, one shared block call, the final norm and head) with flash and
+    without."""
+    import repro_torch.models.hybrid as hybrid
+
+    real_embed = hybrid.embed
+    gen = torch.Generator(device=plain.device)
+    gen.manual_seed(1)
+    noised = []
+
+    def noisy_embed(params, tokens):
+        noised.append(tokens.shape)
+        e = real_embed(params, tokens)
+        noise = torch.randn(e.shape, generator=gen, device=e.device)
+        return (e.float() * (1 + 2.0 ** -8 * noise)).to(e.dtype)
+
+    hybrid.embed = noisy_embed
+    try:
+        noisy = plain_forward(model, batch, attention)
+    finally:
+        hybrid.embed = real_embed
+    noise = prefill_agreement(noisy, plain)
+    if not noised or not noise["mean_abs"] > full_agree["mean_abs"]:
+        raise AssertionError(
+            f"the 2**-8 embedding noise (applied {len(noised)} times) moves "
+            f"the full-depth logits by mean |diff| {noise['mean_abs']}, no "
+            f"more than flash does ({full_agree['mean_abs']}): the full "
+            f"depth must be held, not the first group")
+    full = model.mamba_blocks
+    model.mamba_blocks = full[:1]
+    try:
+        with torch.inference_mode():
+            cut = model(batch)
+        agree = prefill_agreement(cut, plain_forward(model, batch, attention))
+    finally:
+        model.mamba_blocks = full
+    print(f"prefill {model.cfg.name} full depth: logits {line} (not held: "
+          f"the plain forward with 2**-8 relative noise on the embeddings "
+          f"gives mean |diff| {noise['mean_abs']:.6f} > flash's, argmax "
+          f"agreement {noise['argmax_agree']:.6f}); cut to its first group: "
+          f"flash vs "
+          f"plain mean |diff| {agree['mean_abs']:.6f}, max |diff| "
+          f"{agree['max_abs']:.6f}, argmax agreement "
+          f"{agree['argmax_agree']:.6f} at {agree['robust_positions']} "
+          f"positions (tolerance {PREFILL_TOL})")
+    return agree
 
 
 def run_serve(dev, model, qmatmul_ops):
@@ -673,24 +852,30 @@ def continuous_requests(vocab, wave):
         for i in range(CONT_REQUESTS)]
 
 
-def greedy_loop(model, reqs, max_len):
-    """The plain version of continuous serving: greedy decode over
-    ``DecoderLM.decode_step`` from position 0, each request in its own batch
-    row (rows never see each other), teacher-forcing its prompt. Returns
-    per request id its generated tokens and the top-2 logit gap at each."""
+def greedy_loop(model, reqs, max_len, start=0, batch=None):
+    """The plain version of continuous serving: greedy decode over the
+    model's ``decode_step``, each request in its own batch row (rows never
+    see each other), teacher-forcing its prompt, from position ``start``
+    (attention windowed there when > 0) in a batch of ``batch`` rows
+    (default: one per request; spare rows decode token 1). Returns per
+    request id its generated tokens and the top-2 logit gap at each."""
     dev = model.device
-    B = len(reqs)
+    B = batch or len(reqs)
     steps = max(len(r.prompt) + r.max_new_tokens - 1 for r in reqs)
     feed = np.full((steps, B), -1, np.int32)
+    feed[:, len(reqs):] = 1
     for b, r in enumerate(reqs):
         feed[:len(r.prompt), b] = r.prompt
     feed_t = torch.from_numpy(feed).to(dev)
     state = model.decode_state(B, max_len)
+    window = (torch.full((B,), start, dtype=torch.int32, device=dev)
+              if start else None)
     prev = torch.zeros(B, dtype=torch.int32, device=dev)
     toks, gaps = [], []
     for i in range(steps):
         logits, state = model.decode_step(
-            state, torch.where(feed_t[i] >= 0, feed_t[i], prev), i)
+            state, torch.where(feed_t[i] >= 0, feed_t[i], prev), start + i,
+            window_start=window)
         top2 = torch.topk(logits, 2, dim=-1).values
         prev = torch.argmax(logits, dim=-1).to(torch.int32)
         toks.append(prev)
@@ -704,6 +889,27 @@ def greedy_loop(model, reqs, max_len):
                                                     b]],
                              [float(g) for g in gaps[lo:lo + r.max_new_tokens,
                                                      b]])
+    return out
+
+
+def replay_loop(model, reqs, batcher):
+    """The plain version of one continuous wave, replayed after it: the
+    greedy loop at the positions the scheduler gave each request (paged:
+    its local positions, from 0; dense: from its admission position), in
+    batches of the bucket's size, so that every product has the serving
+    step's shape and rounds as it does. Requests admitted at one position
+    share a batch."""
+    bucket = batcher.policy.buckets[0]
+    ids = {r.request_id for r in reqs}
+    starts = {e.request_id: 0 if batcher.paged else e.step
+              for e in batcher.scheduler.events
+              if e.kind == "admit" and e.request_id in ids}
+    out = {}
+    for start in sorted(set(starts.values())):
+        group = [r for r in reqs if starts[r.request_id] == start]
+        for j in range(0, len(group), bucket.batch):
+            out.update(greedy_loop(model, group[j:j + bucket.batch],
+                                   bucket.max_len, start, bucket.batch))
     return out
 
 
@@ -727,6 +933,76 @@ def hold_to_loop(results, loop):
     return compared, full
 
 
+def serve_wave(batcher, reqs, plain, label, per_step, qmatmul_ops,
+               flash_ops):
+    """Serve one wave through a continuous batcher, counted from zero:
+    qmatmul must launch ``per_step`` x k per micro-run and flash never,
+    slots must be refilled, the streams are held to the plain loop that
+    ``plain(batcher)`` gives after the wave ran, and a paged run must
+    leave only scratch and prefix pages in use."""
+    sched = batcher.scheduler
+    before = dict(sched.stats())
+    alloc = batcher.pool.allocator
+    paged0 = alloc.stats() if alloc is not None else None
+    for r in reqs:
+        batcher.submit(r)
+    torch.cuda.synchronize()
+    qmatmul_ops.launches = 0
+    flash_ops.launches = 0
+    t = time.perf_counter()
+    res = batcher.run()              # fetches its tokens: synchronized
+    wall = time.perf_counter() - t
+    launches, flash = qmatmul_ops.launches, flash_ops.launches
+    loop = plain(batcher)
+    after = sched.stats()
+    runs = after["micro_runs"] - before["micro_runs"]
+    if launches != per_step * CONT_K * runs or runs == 0:
+        raise AssertionError(f"{label}: qmatmul launched {launches} "
+                             f"times over {runs} micro-runs, expected "
+                             f"{per_step} x {CONT_K} per micro-run")
+    if flash:
+        raise AssertionError(f"{label}: flash launched {flash} times")
+    refills = after["refills"] - before["refills"]
+    if refills <= 0:
+        raise AssertionError(f"{label}: no slot was refilled")
+    compared, full = hold_to_loop(res, loop)
+    if compared == 0:
+        raise AssertionError(f"{label}: no step clears the gap rule")
+    tokens = sum(len(r.tokens) for r in res.values())
+    row = dict(label=label, wall_s=wall, tokens=tokens,
+               tokens_per_s=tokens / wall, launches=launches,
+               dispatches=after["dispatches"] - before["dispatches"],
+               micro_runs=runs, refills=refills,
+               ms_per_micro_run=wall * 1e3 / runs, compared=compared,
+               full=full, streams=len(res), cache=batcher.cache.stats())
+    if alloc is not None:
+        p = alloc.stats()
+        if p["pages_in_use"] != p["scratch_pages"] + p["prefix_entries"]:
+            raise AssertionError(f"{label}: pages not reclaimed: {p}")
+        row["prefix_hits"] = p["prefix_hits"] - paged0["prefix_hits"]
+        skipped = p["skipped_prefill_tokens"] - paged0[
+            "skipped_prefill_tokens"]
+        row["skipped_prefill_tokens"] = skipped
+        row["prompt_tokens"] = sum(len(r.prompt) for r in reqs)
+        row["prefix_skip_share"] = skipped / row["prompt_tokens"]
+        row["paged"] = p
+    print(f"continuous {label}: {len(res)} requests, {tokens} tokens in "
+          f"{wall:.4f} s = {row['tokens_per_s']:.4f} tokens/s (host "
+          f"clock); {row['dispatches']} dispatches, {runs} micro-runs "
+          f"({row['ms_per_micro_run']:.4f} ms each), {refills} refills; "
+          f"{launches} qmatmul launches == {per_step} x {CONT_K} x {runs}; "
+          f"vs plain loop: {compared} tokens compared, {full}/{len(res)} "
+          f"streams equal in full"
+          + (f"; prefix hits {row['prefix_hits']}, prefill skipped "
+             f"{row['skipped_prefill_tokens']}/{row['prompt_tokens']} "
+             f"prompt tokens ({row['prefix_skip_share']:.4f}); pages in "
+             f"use {row['paged']['pages_in_use']} == scratch "
+             f"{row['paged']['scratch_pages']} + prefix entries "
+             f"{row['paged']['prefix_entries']}"
+             if alloc is not None else "") + f"; cache {row['cache']}")
+    return row
+
+
 def run_continuous(dev, model, plan, qmatmul_ops, flash_ops):
     """Phase 9: continuous serving at full width, paged then dense."""
     from repro_torch.serve import Bucket, BucketPolicy
@@ -741,68 +1017,6 @@ def run_continuous(dev, model, plan, qmatmul_ops, flash_ops):
           f"{CONT_REQUESTS} requests in {time.perf_counter() - t0:.1f} s")
     out = dict(launches={})
 
-    def serve_wave(batcher, reqs, loop, label):
-        sched = batcher.scheduler
-        before = dict(sched.stats())
-        alloc = batcher.pool.allocator
-        paged0 = alloc.stats() if alloc is not None else None
-        for r in reqs:
-            batcher.submit(r)
-        torch.cuda.synchronize()
-        qmatmul_ops.launches = 0
-        flash_ops.launches = 0
-        t = time.perf_counter()
-        res = batcher.run()              # fetches its tokens: synchronized
-        wall = time.perf_counter() - t
-        launches, flash = qmatmul_ops.launches, flash_ops.launches
-        after = sched.stats()
-        runs = after["micro_runs"] - before["micro_runs"]
-        if launches != per_step * CONT_K * runs or runs == 0:
-            raise AssertionError(f"{label}: qmatmul launched {launches} "
-                                 f"times over {runs} micro-runs, expected "
-                                 f"{per_step} x {CONT_K} per micro-run")
-        if flash:
-            raise AssertionError(f"{label}: flash launched {flash} times")
-        refills = after["refills"] - before["refills"]
-        if refills <= 0:
-            raise AssertionError(f"{label}: no slot was refilled")
-        compared, full = hold_to_loop(res, loop)
-        if compared == 0:
-            raise AssertionError(f"{label}: no step clears the gap rule")
-        tokens = sum(len(r.tokens) for r in res.values())
-        row = dict(label=label, wall_s=wall, tokens=tokens,
-                   tokens_per_s=tokens / wall, launches=launches,
-                   dispatches=after["dispatches"] - before["dispatches"],
-                   micro_runs=runs, refills=refills,
-                   ms_per_micro_run=wall * 1e3 / runs, compared=compared,
-                   full=full, streams=len(res), cache=batcher.cache.stats())
-        if alloc is not None:
-            p = alloc.stats()
-            if p["pages_in_use"] != p["scratch_pages"] + p["prefix_entries"]:
-                raise AssertionError(f"{label}: pages not reclaimed: {p}")
-            row["prefix_hits"] = p["prefix_hits"] - paged0["prefix_hits"]
-            skipped = p["skipped_prefill_tokens"] - paged0[
-                "skipped_prefill_tokens"]
-            row["skipped_prefill_tokens"] = skipped
-            row["prompt_tokens"] = sum(len(r.prompt) for r in reqs)
-            row["prefix_skip_share"] = skipped / row["prompt_tokens"]
-            row["paged"] = p
-        print(f"continuous {label}: {len(res)} requests, {tokens} tokens in "
-              f"{wall:.4f} s = {row['tokens_per_s']:.4f} tokens/s (host "
-              f"clock); {row['dispatches']} dispatches, {runs} micro-runs "
-              f"({row['ms_per_micro_run']:.4f} ms each), {refills} refills; "
-              f"{launches} qmatmul launches == {per_step} x {CONT_K} x {runs}; "
-              f"vs plain loop: {compared} tokens compared, {full}/{len(res)} "
-              f"streams equal in full"
-              + (f"; prefix hits {row['prefix_hits']}, prefill skipped "
-                 f"{row['skipped_prefill_tokens']}/{row['prompt_tokens']} "
-                 f"prompt tokens ({row['prefix_skip_share']:.4f}); pages in "
-                 f"use {row['paged']['pages_in_use']} == scratch "
-                 f"{row['paged']['scratch_pages']} + prefix entries "
-                 f"{row['paged']['prefix_entries']}"
-                 if alloc is not None else "") + f"; cache {row['cache']}")
-        return row
-
     paged = plan.make_batcher(policy=BucketPolicy([bucket]),
                               schedule="continuous", steps_per_dispatch=CONT_K,
                               paged=True)
@@ -811,7 +1025,8 @@ def run_continuous(dev, model, plan, qmatmul_ops, flash_ops):
                   * cfg.n_kv * cfg.head_dim)
     print(f"continuous paged: bucket {bucket.label}, k={CONT_K}, pool "
           f"{paged.paged} = {pool_bytes / 1e9:.3f} GB for K and V")
-    rows = [serve_wave(paged, reqs, loop, f"paged wave {w}")
+    rows = [serve_wave(paged, reqs, lambda _b, loop=loop: loop,
+                       f"paged wave {w}", per_step, qmatmul_ops, flash_ops)
             for w, (reqs, loop) in enumerate(zip(waves, loops))]
     out["launches"]["paged"] = sum(r["launches"] for r in rows)
     if rows[1]["prefix_hits"] <= 0:
@@ -823,7 +1038,8 @@ def run_continuous(dev, model, plan, qmatmul_ops, flash_ops):
 
     dense = plan.make_batcher(policy=BucketPolicy([bucket]),
                               schedule="continuous", steps_per_dispatch=CONT_K)
-    row = serve_wave(dense, waves[0], loops[0], "dense wave 0")
+    row = serve_wave(dense, waves[0], lambda _b: loops[0], "dense wave 0",
+                     per_step, qmatmul_ops, flash_ops)
     out["launches"]["dense"] = row["launches"]
 
     out["micro_run"] = {label: time_micro_run(dev, plan, model, batcher)
@@ -1004,6 +1220,69 @@ def run_speculative(dev, model, plan, qmatmul_ops, flash_ops, reqs, loop):
     return out
 
 
+def hybrid_requests(vocab):
+    """Phase 11's wave: phase 9's lengths without the shared system prompt,
+    so that no two prompts share a full page (the prefix cache would
+    otherwise skip tokens that the SSM state needs, a fault of the
+    reference that the port keeps)."""
+    from repro_torch.serve import DecodeRequest
+
+    rng = np.random.default_rng(CONT_SEED + 10)
+    return [DecodeRequest(
+        f"h{i}", [int(t) for t in rng.integers(
+            1, vocab, int(rng.integers(HYBRID_PROMPT[0],
+                                       HYBRID_PROMPT[1] + 1)))],
+        max_new_tokens=4 + (20 * i) // (CONT_REQUESTS - 1))
+        for i in range(CONT_REQUESTS)]
+
+
+def run_hybrid(dev, flash_ops, qmatmul_ops, attention):
+    """Phase 11: zamba2 at full width, prefill through flash, then quantized
+    continuous serving paged and dense, each counted from zero."""
+    from repro_torch.plan import build_plan
+    from repro_torch.serve import Bucket, BucketPolicy
+
+    model, pre = run_prefill(dev, flash_ops, attention, HYBRID_ARCH)
+    plan = build_plan(HYBRID_ARCH, None, quantized=True, device=dev)
+    t0 = time.perf_counter()
+    plan.load_params(model)           # calibrates the shared block's shifts
+    torch.cuda.synchronize()
+    cfg = plan.cfg
+    print(f"{cfg.name} serve plan: calibrated MLP shifts "
+          f"{plan.ir.quant['mlp_shifts']} in {time.perf_counter() - t0:.1f} s")
+    per_step = attention_sites(cfg) + 1       # the head + 9 down-projections
+    reqs = hybrid_requests(cfg.vocab)
+    print(f"{cfg.name} continuous: {per_step} qmatmul launches expected per "
+          f"decode step; each wave is held to a plain greedy loop replayed "
+          f"at the positions it ran at (the random stack amplifies any "
+          f"rounding difference, see hybrid_agreement, so the loop runs in "
+          f"batches of the bucket's size)")
+
+    def replay(batcher):
+        t0 = time.perf_counter()
+        loop = replay_loop(model, reqs, batcher)
+        print(f"{cfg.name}: plain replay of {len(reqs)} requests in "
+              f"{time.perf_counter() - t0:.1f} s")
+        return loop
+
+    bucket = Bucket(CONT_MAX_LEN, CONT_BATCH)
+    out = dict(prefill=pre, launches={}, rows={})
+    batchers = {}
+    for label, paged in (("paged", True), ("dense", None)):
+        batchers[label] = plan.make_batcher(
+            policy=BucketPolicy([bucket]), schedule="continuous",
+            steps_per_dispatch=CONT_K, paged=paged)
+        row = serve_wave(batchers[label], reqs, replay,
+                         f"{cfg.name} {label} wave 0", per_step,
+                         qmatmul_ops, flash_ops)
+        out["rows"][label] = row
+        out["launches"][label] = row["launches"]
+    if out["rows"]["paged"]["prefix_hits"]:
+        raise AssertionError("a hybrid prompt mapped a prefix page")
+    out["micro_run"] = time_micro_run(dev, plan, model, batchers["paged"])
+    return out
+
+
 L2_BYTES = 50e6   # the H100's L2: rotating over more than this keeps it cold
 
 
@@ -1056,12 +1335,12 @@ def time_lm_qmatmul(qlinear, qlinear_ref, dev):
     return rows
 
 
-def time_flash(flash_ops, attention_ref, dev):
-    """The flash kernel at the path shape beside its bound, its plain
+def time_flash(flash_ops, attention_ref, dev, case):
+    """The flash kernel at a path shape beside its bound, its plain
     version and SDPA (the yardstick; the port never calls it)."""
     import torch.nn.functional as F
 
-    BH, Sq, Sk, hd, dtype, causal, _, _ = FLASH_PATH
+    BH, Sq, Sk, hd, dtype, causal, _, _ = case
     q, k, v = flash_inputs(BH, Sq, Sk, hd, dtype, dev, seed=1)
     ms = device_ms(lambda: flash_ops.flash_attention(q, k, v, causal=causal),
                    iters=20)
@@ -1177,12 +1456,13 @@ def main() -> int:
 
     # phase 5: flash kernel vs plain version
     fchk = FlashChecker(flash_ops, attention_ref)
-    for case in FLASH_CASES + [FLASH_PATH]:
+    for case in FLASH_CASES + [FLASH_PATH, FLASH_PATH_HYBRID]:
         err = fchk.compare(*case, dev)
         print(f"flash {case[:7]}{' x100' if case[7] else ''}: kernel vs "
               f"plain max |diff| {err:.3g} (tolerance {FLASH_TOL[case[4]]})")
     print(f"flash kernel == plain within tolerance: {fchk.cases} cases, max "
           f"|diff| {fchk.max_abs_err:.3g}")
+    check_unbuilt_head_dim(dev, flash_ops, attention)
 
     # phase 6: prefill at full width, counted from zero
     model, pre = run_prefill(dev, flash_ops, attention)
@@ -1214,7 +1494,8 @@ def main() -> int:
           f"{srv['split']['profiled_wall_ms']:.4f} ms); "
           f"batcher {srv['batcher']}")
     lm_rows = time_lm_qmatmul(ops.qlinear, qlinear_ref, dev)
-    fl = time_flash(flash_ops, attention_ref, dev)
+    fl = time_flash(flash_ops, attention_ref, dev, FLASH_PATH)
+    fl_h = time_flash(flash_ops, attention_ref, dev, FLASH_PATH_HYBRID)
 
     # phase 9: continuous serving at full width, each run counted from zero
     cont = run_continuous(dev, model, srv["plan"], ops, flash_ops)
@@ -1222,6 +1503,7 @@ def main() -> int:
         print(micro_run_line(f"micro-run yi-6b quantized {label}, batch "
                              f"{CONT_BATCH}, k={CONT_K}", mr))
     cont_launches = cont["launches"]["paged"] + cont["launches"]["dense"]
+    cont_paged = cont["launches"]["paged"]
 
     # phase 10: speculative serving at full width, each run counted from zero
     spec = run_speculative(dev, model, srv["plan"], ops, flash_ops,
@@ -1230,13 +1512,37 @@ def main() -> int:
         print(micro_run_line(f"spec micro-run yi-6b quantized {label}, "
                              f"batch {CONT_BATCH}, k={SPEC_K}", mr))
     spec_launches = spec["launches"]["paged"] + spec["launches"]["dense"]
+    spec_paged = spec["launches"]["paged"]
+
+    # phase 11: the hybrid family at full width, yi-6b freed first
+    yi_layers = model.cfg.n_layers
+    del model, srv["plan"], cont, spec
+    torch.cuda.empty_cache()
+    hyb = run_hybrid(dev, flash_ops, ops, attention)
+    hp = hyb["prefill"]
+    print(f"prefill [{PREFILL_BATCH}, {PREFILL_SEQ}] {HYBRID_ARCH}: median "
+          f"{hp['median_ms']:.4f} ms (host clock, 5 calls after warm-up, "
+          f"all {[round(x, 4) for x in hp['latencies_ms']]}); device: flash "
+          f"{hp['split']['flash_ms']:.4f} ms + qmatmul "
+          f"{hp['split']['qmatmul_ms']:.4f} ms + other ops "
+          f"{hp['split']['other_device_ms']:.4f} ms, idle share "
+          f"{1 - device_busy_ms(hp['split']) / hp['median_ms']:.3f} of "
+          f"the median; largest device entries (ms per call) "
+          f"{[(k, round(v, 4)) for k, v in hp['split']['top']]}")
+    if hp["split"]["flash_ms"] <= 0:
+        raise AssertionError(f"profiler split found no flash time in the "
+                             f"hybrid prefill: {hp['split']}")
+    print(micro_run_line(f"hybrid micro-run {HYBRID_ARCH} quantized paged, "
+                         f"batch {CONT_BATCH}, k={CONT_K}",
+                         hyb["micro_run"]))
+    hyb_launches = hyb["launches"]["paged"] + hyb["launches"]["dense"]
 
     per = {(r["M"], r["K"], r["N"]): r for r in rows_t + lm_rows}
     # one aie predict of every request configuration, and one quantized
     # yi-6b decode step at batch 4 (the head and 32 down-projections)
     path = [(rows, *layer.weight.shape) for name, rows in REQUESTS
             for layer in models[name].layers]
-    path += [LM_QMATMUL[0][:3]] + [LM_QMATMUL[1][:3]] * model.cfg.n_layers
+    path += [LM_QMATMUL[0][:3]] + [LM_QMATMUL[1][:3]] * yi_layers
     tot_ops = sum(per[s]["ops"] for s in path)
     tot_bytes = sum(per[s]["bytes"] for s in path)
     t_ops, t_bytes = tot_ops / H100_INT8_OPS * 1e3, tot_bytes / H100_BYTES_PER_S * 1e3
@@ -1245,18 +1551,20 @@ def main() -> int:
         "name": "qmatmul", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": TPU_KERNEL,
         "launches": launches + srv["launches"] + cont_launches
-        + spec_launches,
+        + spec_launches + hyb_launches,
         "launches_by_path": {
             "paper models (phase 3)": launches,
             "yi-6b fifo serve (phase 7)": srv["launches"],
-            "yi-6b continuous paged serve (phase 9)":
-                cont["launches"]["paged"],
+            "yi-6b continuous paged serve (phase 9)": cont_paged,
             "yi-6b continuous dense serve (phase 9)":
-                cont["launches"]["dense"],
-            "yi-6b speculative paged serve (phase 10)":
-                spec["launches"]["paged"],
+                cont_launches - cont_paged,
+            "yi-6b speculative paged serve (phase 10)": spec_paged,
             "yi-6b speculative dense async serve (phase 10)":
-                spec["launches"]["dense"]},
+                spec_launches - spec_paged,
+            "zamba2-2.7b continuous paged serve (phase 11)":
+                hyb["launches"]["paged"],
+            "zamba2-2.7b continuous dense serve (phase 11)":
+                hyb["launches"]["dense"]},
         "exact": True, "max_abs_err": chk.max_abs_err, "cases": chk.cases,
         "work": "one aie predict of every request configuration and one "
                 "quantized yi-6b decode step at batch 4",
@@ -1268,14 +1576,20 @@ def main() -> int:
         "shapes": rows_t + lm_rows,
     }, {
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
-        "replaces": FLASH_TPU_KERNEL, "launches": pre["launches"],
-        "launches_by_path": {"yi-6b prefill (phase 6)": pre["launches"]},
+        "replaces": FLASH_TPU_KERNEL,
+        "launches": pre["launches"] + hp["launches"],
+        "launches_by_path": {"yi-6b prefill (phase 6)": pre["launches"],
+                             "zamba2-2.7b prefill (phase 11)":
+                                 hp["launches"]},
         "max_abs_err": fchk.max_abs_err, "cases": fchk.cases,
         "work": f"one call at the path shape [{FLASH_PATH[0]}, "
                 f"{FLASH_PATH[1]}, {FLASH_PATH[3]}] bf16 causal",
         "ms": fl["ms"], "plain_ms": fl["plain_ms"],
         "bound_ms": fl["bound_ms"], "bound_by": fl["bound_by"],
         "library_ms": fl["library_ms"],
+        "shapes": [dict(shape=list(case[:4]), dtype=case[4], **t)
+                   for case, t in ((FLASH_PATH, fl),
+                                   (FLASH_PATH_HYBRID, fl_h))],
     }]}
     print(smi)
     print(json.dumps(record))

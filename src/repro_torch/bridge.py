@@ -6,7 +6,8 @@ shifts, ...) into a port :class:`EmittedModel` on a given device, without
 running the passes. ``decoder_lm_from_arrays`` turns the reference's
 decoder-LM parameter tree, as numpy arrays, into a port ``DecoderLM``. The
 port's execution can then be held against the reference's on identical
-weights.
+weights; ``hybrid_from_arrays`` does the same for the hybrid's tree, and
+``model_from_arrays`` picks by the config's family.
 """
 
 from __future__ import annotations
@@ -100,6 +101,39 @@ def _to_tensor(arr, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
+def _install(model: nn.Module, got: Mapping[str, Any],
+             device: torch.device) -> nn.Module:
+    """Give ``model`` (built on the meta device) the arrays of ``got``, one
+    per parameter name; raises on a missing, extra or misshapen leaf."""
+    want = dict(model.named_parameters())
+    missing, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
+    if missing or extra:
+        raise KeyError(f"parameter tree mismatch: missing {missing}, "
+                       f"unexpected {extra}")
+    for name, arr in got.items():
+        if tuple(arr.shape) != tuple(want[name].shape):
+            raise ValueError(f"{name}: shape {tuple(arr.shape)} != "
+                             f"{tuple(want[name].shape)}")
+        parent, leaf = name.rsplit(".", 1)
+        setattr(model.get_submodule(parent), leaf, nn.Parameter(
+            _to_tensor(arr, device), requires_grad=False))
+    return model
+
+
+def _unstack(path: str, arr, dims: Sequence[int],
+             what: str) -> Dict[str, Any]:
+    """Split a leaf stacked over ``dims`` (``what`` names them: ``[L]`` or
+    ``[G, E]``) into one array per index, named ``path`` with the indices
+    spliced in after its first component."""
+    arr = np.asarray(arr)
+    if tuple(arr.shape[:len(dims)]) != tuple(dims):
+        raise ValueError(f"{path}: stacked dims {arr.shape[:len(dims)]} != "
+                         f"{what} {tuple(dims)}")
+    head, rest = path.split(".", 1)
+    return {".".join([head, *map(str, idx), rest]): arr[idx]
+            for idx in np.ndindex(*dims)}
+
+
 def decoder_lm_from_arrays(cfg, params: Mapping[str, Any],
                            device: DeviceLike = None):
     """A port ``DecoderLM`` holding the reference's parameters.
@@ -113,28 +147,46 @@ def decoder_lm_from_arrays(cfg, params: Mapping[str, Any],
     from repro_torch.models.lm import DecoderLM
 
     dev = resolve_device(device)
-    model = DecoderLM(cfg, device="meta")
-    want = dict(model.named_parameters())
     got: Dict[str, Any] = {}
     for path, arr in _flatten(params).items():
         if path.startswith("blocks."):
-            if np.shape(arr)[0] != cfg.n_layers:
-                raise ValueError(f"{path}: stacked dim {np.shape(arr)[0]} "
-                                 f"!= n_layers {cfg.n_layers}")
-            rest = path[len("blocks."):]
-            for layer in range(cfg.n_layers):
-                got[f"blocks.{layer}.{rest}"] = np.asarray(arr)[layer]
+            got.update(_unstack(path, arr, (cfg.n_layers,), "n_layers"))
         else:
             got[path] = np.asarray(arr)
-    missing, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
-    if missing or extra:
-        raise KeyError(f"parameter tree mismatch: missing {missing}, "
-                       f"unexpected {extra}")
-    for name, arr in got.items():
-        if tuple(arr.shape) != tuple(want[name].shape):
-            raise ValueError(f"{name}: shape {tuple(arr.shape)} != "
-                             f"{tuple(want[name].shape)}")
-        parent, leaf = name.rsplit(".", 1)
-        model.get_submodule(parent)[leaf] = nn.Parameter(
-            _to_tensor(arr, dev), requires_grad=False)
-    return model
+    return _install(DecoderLM(cfg, device="meta"), got, dev)
+
+
+def hybrid_from_arrays(cfg, params: Mapping[str, Any],
+                       device: DeviceLike = None):
+    """A port ``HybridModel`` holding the reference's parameters.
+
+    ``params`` is the reference's tree as numpy arrays: ``{"embed":
+    {"table"}, "mamba_blocks": {"ln", "mamba"}, "shared_attn": {...},
+    "ln_f": {"scale"}, "head": {"w"}}`` with every ``mamba_blocks`` leaf
+    stacked ``[G, E, ...]`` (groups, layers per group) and the one shared
+    block unstacked. Layer ``(g, e)`` takes slice ``[g, e]``; every
+    parameter keeps its leaf's dtype. Raises on a missing, extra or
+    misshapen leaf.
+    """
+    from repro_torch.models.hybrid import HybridModel
+
+    dev = resolve_device(device)
+    model = HybridModel(cfg, device="meta")
+    dims = (model.n_groups, cfg.attn_every)
+    got: Dict[str, Any] = {}
+    for path, arr in _flatten(params).items():
+        if path.startswith("mamba_blocks."):
+            got.update(_unstack(path, arr, dims, "(groups, attn_every)"))
+        else:
+            got[path] = np.asarray(arr)
+    return _install(model, got, dev)
+
+
+def model_from_arrays(cfg, params: Mapping[str, Any],
+                      device: DeviceLike = None):
+    """The port's model of ``cfg.family`` holding the reference's
+    parameter tree (numpy arrays); a family the port does not carry
+    raises ``NotImplementedError`` (from ``DecoderLM``)."""
+    if cfg.family == "hybrid":
+        return hybrid_from_arrays(cfg, params, device)
+    return decoder_lm_from_arrays(cfg, params, device)

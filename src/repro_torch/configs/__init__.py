@@ -34,7 +34,7 @@ ARCH_IDS: List[str] = [
 ]
 
 # architectures whose config (and family) the port carries
-PORTED_IDS: List[str] = ["yi_6b"]
+PORTED_IDS: List[str] = ["yi_6b", "zamba2_2_7b"]
 
 # CLI aliases (assignment spelling -> module name)
 ALIASES: Dict[str, str] = {
@@ -65,11 +65,24 @@ def get_config(name: str) -> ArchConfig:
 def reduced_config(name: str) -> ArchConfig:
     """Tiny structure-preserving config of the same family (CPU tests)."""
     cfg = get_config(name)
-    return cfg.with_(
+    kw = dict(
         n_layers=4, d_model=64, n_heads=4, n_kv=min(cfg.n_kv, 2) or 2,
         d_ff=128, vocab=256, head_dim=16, remat=False, q_chunk=32,
         ssd_chunk=8,
     )
+    if cfg.family == "moe":
+        kw.update(n_experts=4, top_k=2, moe_d_ff=64,
+                  n_shared_experts=min(cfg.n_shared_experts, 1))
+    if cfg.family == "vlm":
+        kw.update(cross_attn_every=2, n_layers=4, n_image_tokens=8)
+    if cfg.family == "encdec":
+        kw.update(n_enc_layers=2, n_layers=2, n_kv=4, dec_ratio=2)
+    if cfg.family == "ssm":
+        kw.update(ssm_head_dim=16)
+    if cfg.family == "hybrid":
+        kw.update(attn_every=2, n_layers=4, ssm_state=8, ssm_head_dim=16,
+                  n_kv=4, head_dim=16)
+    return cfg.with_(**kw)
 
 
 __all__ = ["ALIASES", "ARCH_IDS", "PAPER_MODELS", "PORTED_IDS",

@@ -23,7 +23,7 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 # launch of the CUDA kernel counts; the plain version on the CPU does not.
 launches = 0
 
-HEAD_DIMS = (8, 16, 32, 64, 128)   # head dims the kernel is instantiated for
+HEAD_DIMS = (8, 16, 32, 64, 80, 128)   # head dims the kernel is built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_Q_TILES = 65535               # grid y: one block per 64 query rows
 _ALIGN = 16                        # bf16 tiles are copied 16 bytes at a time
@@ -67,6 +67,22 @@ def _check_blocks(Sq: int, Sk: int, causal: bool,
             raise ValueError("non-causal flash requires Sk % block_k == 0")
         if _ceil_to(Sq, bq) != _ceil_to(Sk, bk):
             raise ValueError("causal flash padding requires Sq == Sk")
+
+
+def accepts(Sq: int, Sk: int, hd: int, causal: bool) -> bool:
+    """Whether :func:`flash_attention` is the route for this call at its
+    default blocks: the reference's own rule (``hd % 8 == 0``) and the
+    reference wrapper's checks (:func:`_check_blocks`). Callers route every
+    other call to their plain attention, where the reference (whose flash
+    switch is off) runs it. A head dim that passes here but that the kernel
+    is not built for still goes to the wrapper, which raises on the card."""
+    if hd % 8:
+        return False
+    try:
+        _check_blocks(Sq, Sk, causal, None, None)
+    except ValueError:
+        return False
+    return True
 
 
 def _check_kernel_args(q, k, v, q_start: int) -> None:

@@ -16,6 +16,7 @@ from typing import Mapping, Optional, Union
 
 import torch
 
+from repro_torch.kernels.flash_attention.ops import accepts as flash_accepts
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.layers.linear import linear
 from repro_torch.layers.rope import apply_rope, rope_freqs
@@ -73,8 +74,11 @@ def mha(
 
     GQA is computed in head-repeat form, as in the reference: the kv heads
     are repeated up to the full H. A self-attention prefill (no validity
-    mask, Sq == Sk, hd % 8 == 0) goes through the flash kernel when
-    ``USE_FLASH_KERNEL`` is set.
+    mask, Sq == Sk) goes through the flash kernel when
+    ``USE_FLASH_KERNEL`` is set, ``hd % 8 == 0`` (the reference's rule)
+    and the reference wrapper would accept the blocks; every other call
+    runs the plain path, as in the reference, whose switch is off. A head
+    dim the kernel is not built for raises on the card.
     """
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
@@ -87,7 +91,7 @@ def mha(
         v = torch.repeat_interleave(v, G, dim=2)
 
     if USE_FLASH_KERNEL and kv_valid is None and Sq == k.shape[1] \
-            and hd % 8 == 0:
+            and flash_accepts(Sq, Sq, hd, causal):
         qf = q.transpose(1, 2).reshape(B * H, Sq, hd)
         kf = k.transpose(1, 2).reshape(B * H, -1, hd)
         vf = v.transpose(1, 2).reshape(B * H, -1, hd)

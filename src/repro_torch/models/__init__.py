@@ -1,4 +1,5 @@
-"""The port's models: the dense decoder LM and its config types."""
+"""The port's models: the dense decoder LM, the hybrid (Mamba2 + a shared
+attention block) and their config types."""
 
 from repro_torch.models.base import (
     SHAPES,

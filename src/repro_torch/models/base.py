@@ -2,9 +2,10 @@
 decode LM head and the family dispatch.
 
 A jax-free copy of ``repro.models.base`` for the families the port
-carries (the dense decoder LM). There is no ``ParamSpec``: a model is an
-``nn.Module`` that owns its parameters, in the reference's layout
-(weights ``(d_in, d_out)``, so ``x @ w`` needs no transpose).
+carries (the dense decoder LM and the hybrid). There is no ``ParamSpec``:
+a model is an ``nn.Module`` that owns its parameters, in the reference's
+layout (weights ``(d_in, d_out)``, so ``x @ w`` needs no transpose), and
+:class:`PortedLM` holds what the families share.
 """
 
 from __future__ import annotations
@@ -15,7 +16,11 @@ from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core.emit import DeviceLike
-from repro_torch.layers.linear import matmul_f32, quantized_linear
+from repro_torch.layers.linear import (
+    matmul_f32,
+    quantize_weight,
+    quantized_linear,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,7 +97,7 @@ SHAPES: Dict[str, ShapeSpec] = {
 # with ~5e-4 logit resolution over +-16 (out_shift 11).
 HEAD_SHIFTS = (5, 8, 11)
 
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "hybrid")
 
 
 class PageView(NamedTuple):
@@ -150,7 +155,9 @@ def state_batch_axes(state: Mapping[str, torch.Tensor],
     """Per-leaf index of the batch axis of a decode state.
 
     Every batch-laned leaf of the port's states is ``[L, B, ...]`` (axis
-    1). With ``paged`` the pool leaves have a page axis instead and map
+    1): the KV caches, and the hybrid's SSM and conv states, whose
+    reference ``[G, E, B, ...]`` layout the port flattens to ``[G * E, B,
+    ...]``. With ``paged`` the pool leaves have a page axis instead and map
     to ``-1``: they need no per-slot wipe, since stale pages are invisible
     behind the local-position mask, and :func:`wipe_state_slots` skips
     them.
@@ -166,29 +173,46 @@ def wipe_state_slots(state: Mapping[str, torch.Tensor],
 
     ``slot_mask`` is a [B] bool tensor on the state's device; the zeroing
     is one masked fill per leaf, so it never waits for the device. Leaves
-    whose axis is ``-1`` (the shared page pool) are left untouched.
+    whose axis is ``-1`` (the shared page pool) are left untouched. Raises
+    if a leaf's batch axis does not have ``slot_mask``'s length (a leaf
+    laid out with its batch elsewhere would otherwise wipe the wrong
+    lanes, or broadcast the mask over another axis).
     """
     for name, leaf in state.items():
         axis = batch_axes[name]
         if axis < 0:
             continue
+        if leaf.dim() <= axis or leaf.shape[axis] != slot_mask.shape[0]:
+            raise ValueError(
+                f"state leaf {name!r} of shape {tuple(leaf.shape)} has no "
+                f"batch axis {axis} of {slot_mask.shape[0]} lanes")
         shape = [1] * leaf.dim()
         shape[axis] = slot_mask.shape[0]
         leaf.masked_fill_(slot_mask.view(shape), 0)
 
 
+def model_class(family: str) -> type:
+    """The port's model class of a family; raises for a family the port
+    does not carry."""
+    if family == "dense":
+        from repro_torch.models.lm import DecoderLM
+
+        return DecoderLM
+    if family == "hybrid":
+        from repro_torch.models.hybrid import HybridModel
+
+        return HybridModel
+    raise NotImplementedError(
+        f"family {family!r} is not ported yet (ROADMAP Queue 1 item 12: "
+        "the other families); the port carries "
+        f"{', '.join(PORTED_FAMILIES)}")
+
+
 def build_model(cfg: ArchConfig, device: DeviceLike = None,
                 dtype: torch.dtype = torch.bfloat16):
     """The family's model with uninitialised parameters on ``device``
-    (default: the card). Only the dense decoder LM is ported."""
-    if cfg.family == "dense":
-        from repro_torch.models.lm import DecoderLM
-
-        return DecoderLM(cfg, device=device, dtype=dtype)
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 12: "
-        "the other families); the port carries "
-        f"{', '.join(PORTED_FAMILIES)}")
+    (default: the card)."""
+    return model_class(cfg.family)(cfg, device=device, dtype=dtype)
 
 
 def decode_head_logits(head_w: torch.Tensor, x: torch.Tensor,
@@ -230,3 +254,80 @@ def decode_block_head_logits(head_w: torch.Tensor, x: torch.Tensor,
             out_dtype="int16", out_float_dtype=torch.float32, wq=head_wq,
         )
     return matmul_f32(x, head_w)
+
+
+# Leaves the reference initialises to 0 and to 1; every other leaf is
+# normal: the embedding table N(0, d_model**-0.5), a weight N(0,
+# d_in**-0.5).
+ZERO_LEAVES = ("b", "conv_b", "dt_bias", "A_log")
+ONE_LEAVES = ("scale", "norm_scale", "D")
+
+
+class PortedLM:
+    """What the port's LM families share, mixed into their ``nn.Module``:
+    seeded initialisation, the int8 copies of the LM head and of every
+    SwiGLU down-projection, and the decode head.
+
+    A model sets ``cfg``, ``embed`` and ``head`` and lists its
+    attention blocks (``models.blocks.AttnBlock``) in
+    :meth:`ffn_blocks`.
+    """
+
+    _head_q: Optional[torch.Tensor] = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.head["w"].device
+
+    def ffn_blocks(self):
+        """The blocks whose SwiGLU FFN the quantized plan runs a16w8."""
+        raise NotImplementedError
+
+    def mlp_down_weights(self):
+        """Every ``ffn.down`` weight the a16w8 path quantizes (the
+        reference's calibration walks each ``ffn/down`` leaf)."""
+        return [blk.ffn["down"]["w"] for blk in self.ffn_blocks()]
+
+    @torch.no_grad()
+    def init_params(self, seed: int = 0):
+        """Random parameters from a ``torch.Generator`` on the model's
+        device, with the reference's initialisers (:data:`ZERO_LEAVES`,
+        :data:`ONE_LEAVES`, otherwise normal). The stream differs from the
+        reference's ``jax.random``; tests carry weights across with the
+        bridge."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        for name, p in self.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in ONE_LEAVES:
+                p.fill_(1.0)
+            elif leaf in ZERO_LEAVES:
+                p.zero_()
+            else:
+                std = (p.shape[-1] if name == "embed.table"
+                       else p.shape[0]) ** -0.5
+                p.copy_(torch.randn(p.shape, generator=gen,
+                                    device=self.device) * std)
+        self.reset_quantized()
+        return self
+
+    def reset_quantized(self) -> None:
+        """Drop the int8 weight copies; call after changing parameters."""
+        self._head_q = None
+        for blk in self.ffn_blocks():
+            blk._down_q = None
+
+    def quantized_head(self) -> torch.Tensor:
+        """The LM head as int8 at the head's w_shift, made once."""
+        if self._head_q is None:
+            self._head_q = quantize_weight(self.head["w"], HEAD_SHIFTS[1])
+        return self._head_q
+
+    def head_logits(self, x: torch.Tensor, block: bool = False
+                    ) -> torch.Tensor:
+        """fp32 logits of decode hiddens: [B, V] from ``x`` [B, 1, d], or
+        with ``block`` [B, m, V] from [B, m, d]; through qmatmul when
+        ``cfg.quantized``."""
+        head_q = self.quantized_head() if self.cfg.quantized else None
+        fn = decode_block_head_logits if block else decode_head_logits
+        return fn(self.head["w"], x, self.cfg, head_q)

@@ -20,7 +20,8 @@ from repro_torch.layers.norm import rmsnorm
 from repro_torch.models.base import ArchConfig
 
 
-def _param(*shape: int, device, dtype) -> nn.Parameter:
+def empty_param(*shape: int, device, dtype) -> nn.Parameter:
+    """An uninitialised parameter that takes no gradient."""
     return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
                         requires_grad=False)
 
@@ -28,14 +29,15 @@ def _param(*shape: int, device, dtype) -> nn.Parameter:
 def linear_params(d_in: int, d_out: int, *, bias: bool = False, device,
                   dtype) -> nn.ParameterDict:
     """One linear's parameters: ``w`` (d_in, d_out) and optionally ``b``."""
-    p = {"w": _param(d_in, d_out, device=device, dtype=dtype)}
+    p = {"w": empty_param(d_in, d_out, device=device, dtype=dtype)}
     if bias:
-        p["b"] = _param(d_out, device=device, dtype=dtype)
+        p["b"] = empty_param(d_out, device=device, dtype=dtype)
     return nn.ParameterDict(p)
 
 
 def norm_params(d: int, *, device, dtype) -> nn.ParameterDict:
-    return nn.ParameterDict({"scale": _param(d, device=device, dtype=dtype)})
+    return nn.ParameterDict({"scale": empty_param(d, device=device,
+                                                  dtype=dtype)})
 
 
 class AttnBlock(nn.Module):

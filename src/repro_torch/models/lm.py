@@ -13,25 +13,23 @@ from torch import nn
 
 from repro_torch.core.emit import DeviceLike, resolve_device
 from repro_torch.layers.embedding import embed
-from repro_torch.layers.linear import matmul_f32, quantize_weight
+from repro_torch.layers.linear import matmul_f32
 from repro_torch.layers.norm import rmsnorm
 from repro_torch.models.base import (
     DRAFT_PREFIX,
-    HEAD_SHIFTS,
     PAGED_STATE_KEYS,
     ArchConfig,
     PageView,
-    decode_block_head_logits,
-    decode_head_logits,
+    PortedLM,
 )
 from repro_torch.models.blocks import AttnBlock, norm_params
 
 
-class DecoderLM(nn.Module):
+class DecoderLM(PortedLM, nn.Module):
     """The dense decoder LM with its parameters, on one device.
 
     Parameters are allocated uninitialised; fill them with
-    :meth:`init_params` (random, from a seed) or
+    ``init_params`` (random, from a seed; see ``models.base.PortedLM``) or
     :func:`repro_torch.bridge.decoder_lm_from_arrays` (the reference's
     arrays). ``cfg`` may be replaced after construction (the plan
     recalibrates the quantization shifts); the parameters do not depend
@@ -55,48 +53,9 @@ class DecoderLM(nn.Module):
         self.ln_f = norm_params(cfg.d_model, **kw)
         self.head = nn.ParameterDict({"w": nn.Parameter(
             torch.empty(cfg.d_model, cfg.vocab, **kw), requires_grad=False)})
-        self._head_q: Optional[torch.Tensor] = None
 
-    @property
-    def device(self) -> torch.device:
-        return self.head["w"].device
-
-    # -- parameters -----------------------------------------------------------
-
-    @torch.no_grad()
-    def init_params(self, seed: int = 0) -> "DecoderLM":
-        """Random parameters from a ``torch.Generator`` on the model's
-        device, with the reference's initialisers: norm scales 1, biases
-        0, the embedding table N(0, d_model**-0.5), every weight
-        N(0, d_in**-0.5). The stream differs from the reference's
-        ``jax.random``; tests carry weights across with the bridge."""
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
-        for name, p in self.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf == "scale":
-                p.fill_(1.0)
-            elif leaf == "b":
-                p.zero_()
-            else:
-                std = (p.shape[-1] if name == "embed.table"
-                       else p.shape[0]) ** -0.5
-                p.copy_(torch.randn(p.shape, generator=gen,
-                                    device=self.device) * std)
-        self.reset_quantized()
-        return self
-
-    def reset_quantized(self) -> None:
-        """Drop the int8 weight copies; call after changing parameters."""
-        self._head_q = None
-        for blk in self.blocks:
-            blk._down_q = None
-
-    def quantized_head(self) -> torch.Tensor:
-        """The LM head as int8 at the head's w_shift, made once."""
-        if self._head_q is None:
-            self._head_q = quantize_weight(self.head["w"], HEAD_SHIFTS[1])
-        return self._head_q
+    def ffn_blocks(self):
+        return list(self.blocks)
 
     # -- prefill --------------------------------------------------------------
 
@@ -166,9 +125,7 @@ class DecoderLM(nn.Module):
             x, _, _ = blk.decode(x, state["cache_k"][i], state["cache_v"][i],
                                  pos, cfg, window_start=window_start,
                                  pages=pages)
-        x = rmsnorm(self.ln_f, x)
-        head_q = self.quantized_head() if cfg.quantized else None
-        return decode_head_logits(self.head["w"], x, cfg, head_q), state
+        return self.head_logits(rmsnorm(self.ln_f, x)), state
 
     @torch.inference_mode()
     def decode_block(self, state: Dict[str, torch.Tensor],
@@ -200,6 +157,4 @@ class DecoderLM(nn.Module):
         for i, blk in enumerate(self.blocks[:n]):
             x, _, _ = blk.decode(x, state["cache_k"][i], state["cache_v"][i],
                                  None, cfg, pages=pages, local=local)
-        x = rmsnorm(self.ln_f, x)
-        head_q = self.quantized_head() if cfg.quantized else None
-        return decode_block_head_logits(self.head["w"], x, cfg, head_q), state
+        return self.head_logits(rmsnorm(self.ln_f, x), block=True), state

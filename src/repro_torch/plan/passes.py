@@ -79,7 +79,9 @@ def calibrate_mlp_shifts(
 ) -> Tuple[int, int, int]:
     """Per-tensor calibrated shifts for the a16w8 MLP down-projection.
 
-    ``w_shift`` comes from the absmax over every ``ffn.down`` weight. With
+    ``w_shift`` comes from the absmax over every ``ffn.down`` weight
+    (``model.mlp_down_weights()``: every block of the dense LM, the one
+    shared block of the hybrid). With
     ``observe`` the activation/output shifts come from the ranges a short
     float calibration decode of ``model`` observes (one headroom bit
     reserved for unseen data); without it they fall back to the analytic
@@ -87,7 +89,7 @@ def calibrate_mlp_shifts(
     capped so the SRS shift stays >= 0.
     """
     x_shift = cfg.mlp_x_shift
-    downs = [blk.ffn["down"]["w"] for blk in model.blocks]
+    downs = model.mlp_down_weights()
     if not downs:
         return (x_shift, cfg.mlp_w_shift, cfg.mlp_out_shift)
     # choose_shift reads only max|w|, so the absmax stands in for the tensor

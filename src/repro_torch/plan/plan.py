@@ -75,15 +75,16 @@ class ExecutionPlan:
         return self._install(model)
 
     def load_params(self, params):
-        """Install a ``DecoderLM`` or the reference's parameter tree as
-        numpy arrays (see ``repro_torch.bridge.decoder_lm_from_arrays``),
-        then calibrate. Returns the model."""
-        from repro_torch.models.lm import DecoderLM
+        """Install a ported model (``DecoderLM``, ``HybridModel``) or the
+        reference's parameter tree as numpy arrays (see
+        ``repro_torch.bridge.model_from_arrays``), then calibrate. Returns
+        the model."""
+        from repro_torch.models.base import PortedLM
 
-        if not isinstance(params, DecoderLM):
-            from repro_torch.bridge import decoder_lm_from_arrays
+        if not isinstance(params, PortedLM):
+            from repro_torch.bridge import model_from_arrays
 
-            params = decoder_lm_from_arrays(self.cfg, params, self.device)
+            params = model_from_arrays(self.cfg, params, self.device)
         if params.device != self.device:
             raise ValueError(f"model is on {params.device}, the plan on "
                              f"{self.device}")

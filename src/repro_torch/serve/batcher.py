@@ -282,7 +282,8 @@ class ServeBatcher:
 
         spec = resolve_speculative(speculative, draft, schedule=schedule,
                                    steps_per_dispatch=steps_per_dispatch,
-                                   n_layers=plan.cfg.n_layers)
+                                   n_layers=plan.cfg.n_layers,
+                                   family=plan.cfg.family)
         if spec is not None and paged is not None:
             validate_paged_spec(spec, paged, self.policy.buckets)
         self.spec = spec

@@ -1,6 +1,7 @@
 """Single source of truth for speculative/paged serve validation.
 
-A stdlib-only copy of the reference's ``serve/validation.py``. Every
+A copy of the reference's ``serve/validation.py`` (stdlib only, apart from
+the model-class lookup of the family check). Every
 constraint on the speculative geometry lives here: ``ServeBatcher``
 resolves the user-facing ``speculative=``/``draft=`` arguments through
 :func:`resolve_speculative`, and ``ContinuousScheduler`` re-checks a
@@ -53,16 +54,17 @@ def validate_paged_spec(spec: Tuple[int, int], paged: Tuple[int, int],
 
 def resolve_speculative(speculative: int, draft: Optional[str], *,
                         schedule: str, steps_per_dispatch: int,
-                        n_layers: int) -> Optional[Tuple[int, int]]:
+                        n_layers: int,
+                        family: str) -> Optional[Tuple[int, int]]:
     """Resolve the batcher's ``speculative=``/``draft=`` arguments into a
     ``(spec_k, draft_layers)`` tuple, or None without ``speculative``.
 
     ``draft`` names the draft model — ``"prefix:N"`` runs the first N
     layers of the target as a self-speculative draft (default: half the
     stack). Raises ValueError on every invalid combination, with the
-    reference's messages. The reference also rejects a family without a
-    block-verify decode; the port builds only the dense decoder LM, which
-    has one.
+    reference's messages. The reference asks a model instance for
+    ``decode_block``; the port's batcher resolves before any parameters
+    are loaded, so it asks the class of ``family``.
     """
     if draft is not None and not speculative:
         raise ValueError(
@@ -87,4 +89,10 @@ def resolve_speculative(speculative: int, draft: Optional[str], *,
     if not 1 <= draft_layers <= n_layers:
         raise ValueError(
             f"draft depth must be in [1, {n_layers}], got {draft_layers}")
+    from repro_torch.models.base import model_class
+
+    if not hasattr(model_class(family), "decode_block"):
+        raise ValueError(
+            f"family {family!r} has no block-verify decode path "
+            "(decode_block); speculative lanes need one")
     return (speculative, draft_layers)

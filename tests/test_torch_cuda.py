@@ -114,6 +114,8 @@ def _qkv(rng, BH, Sq, Sk, hd, dtype, dev, scale=1.0):
     (2, 128, 128, 32, False, 0), (2, 96, 96, 16, False, 0),
     (1, 32, 64, 16, True, 32), (2, 20, 20, 16, True, 8),
     (3, 130, 130, 64, True, 0), (4, 200, 200, 128, True, 0),
+    (2, 130, 130, 80, True, 0), (2, 96, 96, 80, False, 0),
+    (2, 48, 64, 80, True, 16),
 ])
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 def test_flash_kernel_matches_plain(cuda, BH, Sq, Sk, hd, causal, q_start,
@@ -132,7 +134,7 @@ def test_flash_kernel_matches_plain(cuda, BH, Sq, Sk, hd, causal, q_start,
     torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
-@pytest.mark.parametrize("hd", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [8, 16, 32, 64, 80, 128])
 @pytest.mark.parametrize("causal,Sk,q_start", [
     (True, 77, 0), (False, 77, 0), (True, 93, 16), (False, 128, 0),
 ])
@@ -189,6 +191,24 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
                                   v[:, :12].contiguous(), causal=False)
 
 
+def test_mha_at_an_unbuilt_head_dim_raises_on_the_card(cuda, monkeypatch):
+    """``mha`` routes a self-attention prefill at any ``hd % 8 == 0`` (the
+    reference's rule) to the flash wrapper; at a head dim the kernel is not
+    built for, the wrapper raises on CUDA tensors rather than the call
+    running the plain attention on the card."""
+    from repro_torch.layers import attention
+
+    monkeypatch.setattr(attention, "USE_FLASH_KERNEL", True)
+    assert 96 not in flash_ops.HEAD_DIMS
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 40, h, 96)))
+               .to(cuda, torch.bfloat16) for h in (4, 2, 2))
+    before = flash_ops.launches
+    with pytest.raises(ValueError, match="head dim 96"):
+        attention.mha(q, k, v, causal=True)
+    assert flash_ops.launches == before
+
+
 def test_reduced_forward_launches_flash_once_per_layer(cuda):
     from repro_torch.plan import build_plan
 
@@ -210,13 +230,17 @@ def test_reduced_forward_launches_flash_once_per_layer(cuda):
 
 # the LM shapes at the continuous bucket's batch: (K, N, x dtype, w dtype)
 _LM_SHAPES = [(4096, 64000, "int8", "int8"), (11008, 4096, "int16", "int8")]
+# zamba2's: the LM head and the shared block's down-projection
+_HYBRID_SHAPES = [(2560, 32000, "int8", "int8"),
+                  (10240, 2560, "int16", "int8")]
 
 
-@pytest.mark.parametrize("K,N,dt_a,dt_b", _LM_SHAPES)
+@pytest.mark.parametrize("K,N,dt_a,dt_b", _LM_SHAPES + _HYBRID_SHAPES)
 @pytest.mark.parametrize("split", [False, True], ids=["one", "split"])
 def test_qmatmul_m8_lm_shapes_equal_plain(cuda, K, N, dt_a, dt_b, split):
-    """M = 8 (the continuous bucket's batch) at both LM shapes, over the
-    full int16 range, with one split of K and with several."""
+    """M = 8 (the continuous bucket's batch) at the yi-6b and zamba2 LM
+    shapes, over the full int16 range, with one split of K and with
+    several."""
     M = 8
     rng = np.random.default_rng(K + N)
     lo = -(2 ** 15) if dt_a == "int16" else -128
@@ -240,14 +264,15 @@ _TRACE = [("p0", [63, 51, 50], 7), ("p1", [33, 17, 32], 5),
 _CARD_MIN_GAP = 0.05
 
 
-def _continuous(device, quantized, paged, state_dict, speculative=0):
+def _continuous(device, quantized, paged, state_dict, speculative=0,
+                arch="yi-6b"):
     from repro_torch.models import build_model
     from repro_torch.plan import build_plan
     from repro_torch.serve import DecodeRequest
 
-    plan = build_plan("yi-6b", None, debug=True, quantized=quantized,
-                      config_overrides=dict(n_layers=2, vocab=64),
-                      device=device)
+    overrides = dict(n_layers=2, vocab=64) if arch == "yi-6b" else None
+    plan = build_plan(arch, None, debug=True, quantized=quantized,
+                      config_overrides=overrides, device=device)
     model = build_model(plan.cfg, device=device)
     model.load_state_dict(state_dict)
     plan.load_params(model)
@@ -280,6 +305,50 @@ def test_continuous_serving_on_card_equals_cpu(cuda, quantized, paged):
     if paged:
         s = card_b.stats()["paged"]
         assert s["pages_in_use"] == s["scratch_pages"] + s["prefix_entries"]
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("quantized", [False, True],
+                         ids=["float", "quantized"])
+def test_hybrid_serving_on_card_equals_cpu(cuda, quantized, paged):
+    """The reduced zamba2 (2 groups of 2 Mamba2 layers) served continuous
+    (k = 4) on the card gives its CPU run's tokens, with the SSM and conv
+    lanes wiped on the card, and launches qmatmul (2 + 1) x k times per
+    micro-run when quantized: the head and the shared block's
+    down-projection at both call sites."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import build_model
+
+    cfg = reduced_config("zamba2-2.7b")
+    weights = build_model(cfg, device="cpu").init_params(0).state_dict()
+    cpu_b, want = _continuous("cpu", quantized, paged, weights,
+                              arch="zamba2-2.7b")
+    before = ops.launches
+    card_b, got = _continuous("cuda", quantized, paged, weights,
+                              arch="zamba2-2.7b")
+    torch.cuda.synchronize()
+    runs = card_b.scheduler.stats()["micro_runs"]
+    assert card_b.scheduler.refills > 0
+    assert ops.launches - before == (3 * 4 * runs if quantized else 0)
+    _hold_to_cpu_run(cpu_b.plan.model, got, want)
+    if paged:
+        s = card_b.stats()["paged"]
+        assert s["pages_in_use"] == s["scratch_pages"] + s["prefix_entries"]
+
+
+def test_reduced_hybrid_forward_launches_flash_once_per_group(cuda):
+    from repro_torch.plan import build_plan
+
+    plan = build_plan("zamba2-2.7b", None, debug=True)
+    model = plan.init_params(seed=0)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, plan.cfg.vocab, (2, 40))).to(cuda)
+    before = flash_ops.launches
+    logits = model({"tokens": toks})
+    torch.cuda.synchronize()
+    assert flash_ops.launches == before + model.n_groups
+    assert logits.shape == (2, 40, plan.cfg.vocab)
+    assert torch.isfinite(logits).all()
 
 
 def _hold_to_cpu_run(model, got, want, forced=False):

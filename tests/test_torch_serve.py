@@ -560,19 +560,21 @@ def test_speculative_raises_naming_the_next_slice():
                     (dict(draft="suffix:1"), "prefix:N"),
                     (dict(draft="prefix:9"), "draft depth")):
         args = dict(schedule="continuous", steps_per_dispatch=4,
-                    draft=None, n_layers=2)
+                    draft=None, n_layers=2, family="dense")
         args.update(kw)
         with pytest.raises(ValueError, match=msg):
             resolve_speculative(4, **args)
     with pytest.raises(ValueError, match="draft only applies"):
         resolve_speculative(0, "prefix:1", schedule="continuous",
-                            steps_per_dispatch=4, n_layers=2)
+                            steps_per_dispatch=4, n_layers=2,
+                            family="dense")
     assert resolve_speculative(0, None, schedule="continuous",
-                               steps_per_dispatch=4, n_layers=2) is None
+                               steps_per_dispatch=4, n_layers=2,
+                               family="dense") is None
     for draft, layers in ((None, 1), ("prefix:2", 2)):
         assert resolve_speculative(4, draft, schedule="continuous",
-                                   steps_per_dispatch=4,
-                                   n_layers=2) == (4, layers)
+                                   steps_per_dispatch=4, n_layers=2,
+                                   family="dense") == (4, layers)
     for kw, msg in ((dict(steps_per_dispatch=4), "continuous"),
                     (dict(admission=make_policy("edf")), "continuous"),
                     (dict(schedule="continuous", steps_per_dispatch=0),
