@@ -118,6 +118,39 @@ Phases, each of which fails the run (non-zero exit, no result line):
    8x10240x2560 a16w8) with split-K on and off, and phase 5 holds flash at
    head dim 80 (the reference grid in fp32 and bf16, and the path shape
    [2*32, 2048, 80] bf16 causal), timed in phase 8.
+12-14. The other dense configs, the MoE family and RWKV at full width, each
+   model freed before the next is loaded, each as phase 11 runs the
+   hybrid (random bf16 weights from seed 0; prefill [2, 2048]; quantized
+   continuous serving, bucket 8 x 512, k = 4, one paged and one dense
+   wave of 12 requests counted from zero, every stream held by phase 9's
+   gap rule to the plain loop replayed at its positions in batches of 8;
+   a prefill line and a micro-run line with the profiler split):
+   12. qwen1.5-4b (40 layers, QKV bias, vocab 151,936): 40 flash launches
+       per prefill, each held to the plain attention on its own inputs,
+       and the logits held to ``PREFILL_TOL`` against the plain chunked
+       attention; phase 9's first wave (shared system prompt);
+       qmatmul 41 x 4 per micro-run (the head and 40 down-projections).
+   13. phi3.5-moe-42b-a6.6b cut in depth to 24 of its 32 layers (the whole
+       model does not fit one card): 24 flash launches per prefill, each
+       held as for qwen; the share of expert assignments that capacity
+       dropped; rounding-sized differences flip the random router's
+       choices, so the free logits are printed beside the 2**-8 noise
+       yardstick (which must move them more) and ``PREFILL_TOL`` holds
+       the full depth with the plain forward taking the flash forward's
+       routing; phase 9's first wave; qmatmul 1 x 4 per micro-run (the
+       head; the expert FFNs stay float, as in the reference).
+   14. rwkv6-7b (32 layers, 64 wkv heads of 64): no flash; the prefill of
+       the first 64 tokens against 64 decode steps over them, printed at
+       full depth beside the noise yardstick (the random stack is chaotic,
+       as zamba2's) and held to ``PREFILL_TOL`` on the model cut to its
+       first layer; the device split is profiled on a [2, 256] prefill;
+       prompts that share no full page (the prefix cache breaks recurrent
+       state, as for the hybrid); qmatmul 1 x 4 per micro-run.
+   Phase 2 also holds qmatmul at their decode shapes (8x2560x151936 and
+   8x4096x32064, ragged N, 8x4096x65536 int8; 8x6912x2560 a16w8; and
+   32x4096x32064, phi3.5-moe's head at a speculative verify) with split-K
+   on and off, and phase 5 holds flash at qwen's path shape [2*20, 2048,
+   128] bf16 causal, all timed in phase 8.
 
 The last two lines are the ``kernels`` JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -126,6 +159,7 @@ The last two lines are the ``kernels`` JSON record and
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import statistics
 import subprocess
@@ -176,7 +210,17 @@ LM_QMATMUL_M32 = [(32,) + s[1:] for s in LM_QMATMUL]
 # and the shared block's a16w8 down-projection
 HYBRID_QMATMUL = [(8, 2560, 32000, "int8", "int8", "int16"),
                   (8, 10240, 2560, "int16", "int8", "int16")]
-LM_SHAPES = LM_QMATMUL + LM_QMATMUL_M8 + LM_QMATMUL_M32 + HYBRID_QMATMUL
+# phases 12-14's quantized decode at batch 8: qwen1.5-4b's int8 head and
+# a16w8 down-projection, and the int8 heads of phi3.5-moe and rwkv6-7b
+# (their FFNs stay float, as in the reference); and phi3.5-moe's head at a
+# speculative verify's M = 32 (8 slots x 4 positions)
+FAMILY_QMATMUL = [(8, 2560, 151936, "int8", "int8", "int16"),
+                  (8, 6912, 2560, "int16", "int8", "int16"),
+                  (8, 4096, 32064, "int8", "int8", "int16"),
+                  (8, 4096, 65536, "int8", "int8", "int16"),
+                  (32, 4096, 32064, "int8", "int8", "int16")]
+LM_SHAPES = (LM_QMATMUL + LM_QMATMUL_M8 + LM_QMATMUL_M32 + HYBRID_QMATMUL
+             + FAMILY_QMATMUL)
 
 # decode-sized M for the 16-row tile and split-K: (M, K, N)
 SMALL_M_SHAPES = [(M, K, 300) for M in (1, 4, 16, 17) for K in (70, 11008)]
@@ -223,6 +267,22 @@ HYBRID_ARCH = "zamba2-2.7b"
 FLASH_PATH_HYBRID = (PREFILL_BATCH * 32, PREFILL_SEQ, PREFILL_SEQ, 80,
                      "bf16", True, 0, False)
 HYBRID_PROMPT = (42, 48)      # prompt lengths: phase 9's 40 + 2-8
+# phases 12-14: the other dense configs, the MoE family and RWKV at full
+# width; phi3.5-moe is cut in depth to 24 of its 32 layers (31.5 B
+# parameters, 62.9 GB in bf16: the whole model's 83.7 GB does not fit one
+# 80 GB card)
+QWEN_ARCH, RWKV_ARCH = "qwen1.5-4b", "rwkv6-7b"
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+MOE_LAYERS = 24
+FLASH_PATH_QWEN = (PREFILL_BATCH * 20, PREFILL_SEQ, PREFILL_SEQ, 128, "bf16",
+                   True, 0, False)
+# RWKV's prefill runs its recurrence token by token on the host (the
+# reference has no kernel for it): its latency is the median of 2 calls,
+# and its device split is profiled on the first 256 tokens (the profiler's
+# cost grows with the 3 launches per token and layer)
+RWKV_PREFILL_REPS, RWKV_PROFILE_SEQ = (2, 1), 256
+# the positions of a prefill held against a decode-step replay
+RECURRENT_CHECK = 64
 SERVE_BATCH, SERVE_MAX_LEN, SERVE_TOKENS, SERVE_WAVES = 4, 256, 8, 2
 # phase 9: continuous serving; streams are held to the plain loop up to the
 # first step whose top-2 logit gap is under CONT_MIN_GAP (random
@@ -590,46 +650,108 @@ def check_unbuilt_head_dim(dev, flash_ops, attention, hd=96):
 
 
 def attention_sites(cfg):
-    """Self-attention calls per forward: every layer of the dense LM, one
-    per group (the shared block) of the hybrid."""
+    """Self-attention calls per forward: every layer of the decoder LMs,
+    one per group (the shared block) of the hybrid, none in RWKV."""
     if cfg.family == "hybrid":
         return cfg.n_layers // cfg.attn_every
+    if cfg.family == "ssm":
+        return 0
     return cfg.n_layers
 
 
-def run_prefill(dev, flash_ops, attention, arch="yi-6b"):
-    """Phases 6 and 11: a forward at full width through the flash
-    kernel."""
+def describe_model(cfg, model, arch):
+    """One line of the model's widths, its cut and its size."""
+    from repro_torch.configs import get_config
+
+    full = get_config(arch)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    if cfg.family == "hybrid":
+        shape = (f" in {attention_sites(cfg)} groups with one shared "
+                 f"attention block, ssm state {cfg.ssm_state}, ssm head dim "
+                 f"{cfg.ssm_head_dim}")
+    elif cfg.family == "moe":
+        shape = (f", {cfg.n_experts} experts of d_ff {cfg.moe_d_ff} (top "
+                 f"{cfg.top_k}, {cfg.n_shared_experts} shared)")
+    elif cfg.family == "ssm":
+        shape = (f", {cfg.d_model // cfg.ssm_head_dim} wkv heads of "
+                 f"{cfg.ssm_head_dim}")
+    else:
+        shape = ", QKV bias" if cfg.qkv_bias else ""
+    cut = (f" (cut in depth from {full.n_layers}: the whole model does not "
+           f"fit one card)" if cfg.n_layers != full.n_layers else "")
+    return (f"{cfg.name}: {cfg.n_layers} layers{cut}{shape}, d_model "
+            f"{cfg.d_model}, {cfg.n_heads} heads (kv {cfg.n_kv}, head dim "
+            f"{cfg.head_dim}), d_ff {cfg.d_ff}, vocab {cfg.vocab}: {n_params}"
+            f" = {n_params / 1e9:.3f} B parameters, {n_bytes / 1e9:.2f} GB")
+
+
+@contextlib.contextmanager
+def moe_routing(counts=None, routes=None, replay=None):
+    """Within the block, every MoE dispatch adds its valid slots and its
+    assignments to ``counts`` (``kept``, ``assigned``); every routing is
+    appended to ``routes``; with ``replay`` (a list of routings) each
+    routing is taken from it in order instead of computed."""
+    import repro_torch.layers.moe as moe
+
+    real_route, real_dispatch = moe.route, moe.dispatch
+    held = iter(replay) if replay is not None else None
+
+    def route(*args):
+        out = next(held) if held is not None else real_route(*args)
+        if routes is not None:
+            routes.append(out)
+        return out
+
+    def dispatch(expert_ids, gate_vals, n_experts, cap):
+        out = real_dispatch(expert_ids, gate_vals, n_experts, cap)
+        if counts is not None:
+            counts["kept"] += int(out[1].sum())
+            counts["assigned"] += expert_ids.numel()
+        return out
+
+    moe.route, moe.dispatch = route, dispatch
+    try:
+        yield
+    finally:
+        moe.route, moe.dispatch = real_route, real_dispatch
+
+
+def run_prefill(dev, flash_ops, attention, arch="yi-6b", overrides=None,
+                reps=(5, 2), profile_seq=None):
+    """Phases 6 and 11-14: a forward at full width (``overrides`` cut its
+    depth) through the flash kernel; ``reps`` are the timed calls and the
+    profiled ones; with ``profile_seq`` the profiled calls take only the
+    first ``profile_seq`` tokens of each sequence, and the idle share is
+    read against their own host-clock median."""
     from repro_torch.models.base import ShapeSpec
     from repro_torch.plan import build_plan
 
     shape = ShapeSpec(f"prefill_{PREFILL_BATCH}x{PREFILL_SEQ}", PREFILL_SEQ,
                       PREFILL_BATCH, "prefill")
-    plan = build_plan(arch, shape, device=dev)
+    plan = build_plan(arch, shape, device=dev, config_overrides=overrides)
     cfg = plan.cfg
     t0 = time.perf_counter()
     model = plan.init_params(seed=0)
     torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    print(f"{cfg.name}: {cfg.n_layers} layers"
-          + (f" in {attention_sites(cfg)} groups with one shared attention "
-             f"block, ssm state {cfg.ssm_state}, ssm head dim "
-             f"{cfg.ssm_head_dim}" if cfg.family == "hybrid" else "")
-          + f", d_model {cfg.d_model}, {cfg.n_heads} heads (kv {cfg.n_kv}, "
-          f"head dim {cfg.head_dim}), d_ff {cfg.d_ff}, vocab {cfg.vocab}: "
-          f"{n_params} = {n_params / 1e9:.3f} B parameters, "
-          f"{sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9:.2f}"
-          f" GB, init {time.perf_counter() - t0:.1f} s")
+    print(describe_model(cfg, model, arch)
+          + f", init {time.perf_counter() - t0:.1f} s")
     prefill = plan.executable("prefill")
     batch = {"tokens": torch.from_numpy(
         lm_tokens(cfg.vocab, (PREFILL_BATCH, PREFILL_SEQ), 0)).to(dev)}
 
     sites = attention_sites(cfg)
     site_errs = []
+    drops = dict(kept=0, assigned=0)
+    routes = []               # the MoE routing of each layer, in order
     flash_ops.launches = 0
-    with held_sites(attention, site_errs):
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with held_sites(attention, site_errs), moe_routing(drops, routes):
         logits = prefill.fn(model, batch)
     torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = flash_ops.launches
     if launches != sites or len(site_errs) != sites:
         raise AssertionError(f"flash launched {launches} times in one "
@@ -637,40 +759,165 @@ def run_prefill(dev, flash_ops, attention, arch="yi-6b"):
     if logits.shape != (PREFILL_BATCH, PREFILL_SEQ, cfg.vocab) \
             or not torch.isfinite(logits).all():
         raise AssertionError(f"bad prefill logits {tuple(logits.shape)}")
+    held = (f"each site's flash output vs the plain attention on its own "
+            f"inputs: max |diff| {max(site_errs):.6f} (tolerance "
+            f"{FLASH_TOL['bf16']})" if sites else "no attention")
     print(f"prefill {cfg.name} [{PREFILL_BATCH}, {PREFILL_SEQ}]: {launches} "
           f"flash launches == attention sites x 1 call; logits finite; "
-          f"each site's flash output vs the plain attention on its own "
-          f"inputs: max |diff| {max(site_errs):.6f} (tolerance "
-          f"{FLASH_TOL['bf16']})")
-    plain = plain_forward(model, batch, attention)
-    agree = prefill_agreement(logits, plain)
-    line = (f"vs plain chunked attention: mean |diff| {agree['mean_abs']:.6f}"
-            f", max |diff| {agree['max_abs']:.6f}, argmax agreement "
-            f"{agree['argmax_agree']:.6f} at {agree['robust_positions']} "
-            f"positions with top-2 gap > 0.1")
-    if cfg.family == "hybrid":
-        # the random hybrid stack amplifies any rounding difference (see
-        # hybrid_agreement); the logits are held on its first group
-        agree = hybrid_agreement(model, batch, attention, plain, agree,
-                                 line)
+          f"{held}; first call {first_s:.1f} s, peak card memory "
+          f"{peak_gb:.2f} GB")
+    if cfg.family == "moe":
+        if drops["assigned"] != cfg.n_layers * PREFILL_BATCH * PREFILL_SEQ \
+                * cfg.top_k:
+            raise AssertionError(f"MoE dispatch counted {drops}")
+        print(f"prefill {cfg.name}: capacity dropped "
+              f"{drops['assigned'] - drops['kept']} of {drops['assigned']} "
+              f"expert assignments (share "
+              f"{1 - drops['kept'] / drops['assigned']:.6f}; capacity "
+              f"factor 1.25)")
+    if sites:
+        plain = plain_forward(model, batch, attention)
+        agree = prefill_agreement(logits, plain)
+        line = (f"vs plain chunked attention: mean |diff| "
+                f"{agree['mean_abs']:.6f}, max |diff| {agree['max_abs']:.6f}"
+                f", argmax agreement {agree['argmax_agree']:.6f} at "
+                f"{agree['robust_positions']} positions with top-2 gap > 0.1")
+        if cfg.family == "hybrid":
+            # the random hybrid stack amplifies any rounding difference
+            # (see hybrid_agreement); the logits are held on its first group
+            agree = hybrid_agreement(model, batch, attention, plain, agree,
+                                     line)
+        elif cfg.family == "moe":
+            # rounding-sized differences flip routing choices (see
+            # routing_held_agreement); the logits are held with the flash
+            # forward's routing
+            agree = routing_held_agreement(model, batch, attention, plain,
+                                           agree, line, logits, routes)
+        else:
+            print(f"prefill {cfg.name}: logits {line} (tolerance "
+                  f"{PREFILL_TOL})")
+        del plain
     else:
-        print(f"prefill {cfg.name}: logits {line} (tolerance {PREFILL_TOL})")
-    del plain
+        agree = recurrent_agreement(model, batch, attention)
+    del routes
     if not (agree["mean_abs"] <= PREFILL_TOL["mean_abs"]
             and agree["max_abs"] <= PREFILL_TOL["max_abs"]
             and agree["argmax_agree"] >= PREFILL_TOL["argmax_agree"]):
-        raise AssertionError(f"flash prefill disagrees with plain: {agree}")
+        raise AssertionError(f"{cfg.name} prefill disagrees: {agree}")
 
     lat = []
-    for _ in range(5):
+    for _ in range(reps[0]):
         t = time.perf_counter()
         prefill.fn(model, batch)
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t) * 1e3)
-    split = profile_split(lambda: prefill.fn(model, batch), calls=2)
-    return model, dict(launches=launches, agreement=agree,
-                       median_ms=statistics.median(lat), latencies_ms=lat,
-                       split=split)
+    out = dict(launches=launches, agreement=agree,
+               median_ms=statistics.median(lat), latencies_ms=lat)
+    if profile_seq is None:
+        out["split"] = profile_split(lambda: prefill.fn(model, batch),
+                                     calls=reps[1])
+    else:
+        short = {"tokens": batch["tokens"][:, :profile_seq]}
+        with torch.inference_mode():
+            lat = []
+            for _ in range(3):
+                t = time.perf_counter()
+                model(short)
+                torch.cuda.synchronize()
+                lat.append((time.perf_counter() - t) * 1e3)
+            out["split"] = profile_split(lambda: model(short), calls=reps[1])
+        out.update(split_seq=profile_seq,
+                   split_median_ms=statistics.median(lat))
+    if cfg.family == "moe":
+        out["drops"] = drops
+    return model, out
+
+
+def recurrent_agreement(model, batch, attention, n=RECURRENT_CHECK):
+    """RWKV's prefill against decode steps over the same tokens, held on
+    its first layer.
+
+    The prefill of the first ``n`` tokens and ``n`` decode steps from the
+    zero state run the same recurrence, with every product at another
+    shape (M = 2 n against M = 2), which cuBLAS rounds differently. The
+    random stack amplifies that layer by layer, and a 2**-8 relative noise
+    on the embeddings alone moves the full-depth logits further than the
+    decode replay does. That is checked here (else the call raises); the
+    full depth is printed beside that yardstick, and PREFILL_TOL holds the
+    same model cut to its first layer (with the final norm and head)."""
+    short = {"tokens": batch["tokens"][:, :n]}
+
+    def replay():
+        state = model.decode_state(PREFILL_BATCH, n)
+        with torch.inference_mode():
+            steps = [model.decode_step(state, short["tokens"][:, i], i)[0]
+                     for i in range(n)]
+            return model(short), torch.stack(steps, dim=1)
+
+    prefill, steps = replay()
+    full = prefill_agreement(steps, prefill)
+    noise = embedding_noise(model, short, attention, prefill)
+    if not noise["mean_abs"] > full["mean_abs"]:
+        raise AssertionError(
+            f"the 2**-8 embedding noise moves the full-depth logits by mean "
+            f"|diff| {noise['mean_abs']}, no more than the decode replay "
+            f"does ({full['mean_abs']}): the full depth must be held")
+    blocks = model.blocks
+    model.blocks = blocks[:1]
+    try:
+        agree = prefill_agreement(*reversed(replay()))
+    finally:
+        model.blocks = blocks
+    print(f"prefill {model.cfg.name}: the first {n} positions vs {n} decode "
+          f"steps, full depth: mean |diff| {full['mean_abs']:.6f}, max "
+          f"|diff| {full['max_abs']:.6f}, argmax agreement "
+          f"{full['argmax_agree']:.6f} at {full['robust_positions']} "
+          f"positions with top-2 gap > 0.1 (not held: 2**-8 relative noise "
+          f"on the embeddings gives mean |diff| {noise['mean_abs']:.6f}, "
+          f"argmax agreement {noise['argmax_agree']:.6f}); cut to its first "
+          f"layer: mean |diff| {agree['mean_abs']:.6f}, max |diff| "
+          f"{agree['max_abs']:.6f}, argmax agreement "
+          f"{agree['argmax_agree']:.6f} at {agree['robust_positions']} "
+          f"positions (tolerance {PREFILL_TOL})")
+    return agree
+
+
+def routing_held_agreement(model, batch, attention, plain, full_agree, line,
+                           logits, routes):
+    """The MoE's flash-vs-plain logits, held with the flash forward's
+    routing.
+
+    Each flash call rounds its output otherwise than the plain attention
+    (every launch is held to it on its own inputs). In a random MoE that
+    difference flips near-tied top-2 choices and, where capacity drops
+    assignments, which ones keep a slot; each flip moves a token's FFN
+    output by O(1), from the first layer on, so no cut in depth holds the
+    free logits. A 2**-8 relative noise on the embeddings moves them
+    further than flash does: that is checked here (else the call raises).
+    So the free full depth is printed beside that yardstick, and
+    PREFILL_TOL holds the full depth with the plain forward taking the
+    flash forward's ``routes`` (each layer's expert ids and gates)."""
+    noise = embedding_noise(model, batch, attention, plain)
+    if not noise["mean_abs"] > full_agree["mean_abs"]:
+        raise AssertionError(
+            f"the 2**-8 embedding noise moves the full-depth logits by mean "
+            f"|diff| {noise['mean_abs']}, no more than flash does "
+            f"({full_agree['mean_abs']}): the free routing must be held")
+    if len(routes) != model.cfg.n_layers:
+        raise AssertionError(f"{len(routes)} routings recorded for "
+                             f"{model.cfg.n_layers} layers")
+    with moe_routing(replay=routes):
+        held = plain_forward(model, batch, attention)
+    agree = prefill_agreement(logits, held)
+    print(f"prefill {model.cfg.name} free routing: logits {line} (not held: "
+          f"the plain forward with 2**-8 relative noise on the embeddings "
+          f"gives mean |diff| {noise['mean_abs']:.6f} > flash's, argmax "
+          f"agreement {noise['argmax_agree']:.6f}); routing held to the "
+          f"flash forward's: mean |diff| {agree['mean_abs']:.6f}, max |diff| "
+          f"{agree['max_abs']:.6f}, argmax agreement "
+          f"{agree['argmax_agree']:.6f} at {agree['robust_positions']} "
+          f"positions (tolerance {PREFILL_TOL})")
+    return agree
 
 
 @contextlib.contextmanager
@@ -709,6 +956,32 @@ def plain_forward(model, batch, attention):
         attention.USE_FLASH_KERNEL = True
 
 
+def embedding_noise(model, batch, attention, plain):
+    """The plain forward with a 2**-8 relative noise on the embeddings,
+    against ``plain``: the yardstick of how far a rounding-sized change
+    moves the random stack's logits."""
+    module = sys.modules[type(model).__module__]
+    real_embed = module.embed
+    gen = torch.Generator(device=plain.device)
+    gen.manual_seed(1)
+    noised = []
+
+    def noisy_embed(params, tokens):
+        noised.append(tokens.shape)
+        e = real_embed(params, tokens)
+        noise = torch.randn(e.shape, generator=gen, device=e.device)
+        return (e.float() * (1 + 2.0 ** -8 * noise)).to(e.dtype)
+
+    module.embed = noisy_embed
+    try:
+        noisy = plain_forward(model, batch, attention)
+    finally:
+        module.embed = real_embed
+    if not noised:
+        raise AssertionError("the embedding noise was never applied")
+    return prefill_agreement(noisy, plain)
+
+
 def hybrid_agreement(model, batch, attention, plain, full_agree, line):
     """The hybrid's flash-vs-plain logits, held on its first group.
 
@@ -721,31 +994,13 @@ def hybrid_agreement(model, batch, attention, plain, full_agree, line):
     PREFILL_TOL holds the same model cut to its first group (6 Mamba2
     layers, one shared block call, the final norm and head) with flash and
     without."""
-    import repro_torch.models.hybrid as hybrid
-
-    real_embed = hybrid.embed
-    gen = torch.Generator(device=plain.device)
-    gen.manual_seed(1)
-    noised = []
-
-    def noisy_embed(params, tokens):
-        noised.append(tokens.shape)
-        e = real_embed(params, tokens)
-        noise = torch.randn(e.shape, generator=gen, device=e.device)
-        return (e.float() * (1 + 2.0 ** -8 * noise)).to(e.dtype)
-
-    hybrid.embed = noisy_embed
-    try:
-        noisy = plain_forward(model, batch, attention)
-    finally:
-        hybrid.embed = real_embed
-    noise = prefill_agreement(noisy, plain)
-    if not noised or not noise["mean_abs"] > full_agree["mean_abs"]:
+    noise = embedding_noise(model, batch, attention, plain)
+    if not noise["mean_abs"] > full_agree["mean_abs"]:
         raise AssertionError(
-            f"the 2**-8 embedding noise (applied {len(noised)} times) moves "
-            f"the full-depth logits by mean |diff| {noise['mean_abs']}, no "
-            f"more than flash does ({full_agree['mean_abs']}): the full "
-            f"depth must be held, not the first group")
+            f"the 2**-8 embedding noise moves the full-depth logits by mean "
+            f"|diff| {noise['mean_abs']}, no more than flash does "
+            f"({full_agree['mean_abs']}): the full depth must be held, not "
+            f"a cut")
     full = model.mamba_blocks
     model.mamba_blocks = full[:1]
     try:
@@ -758,8 +1013,7 @@ def hybrid_agreement(model, batch, attention, plain, full_agree, line):
           f"the plain forward with 2**-8 relative noise on the embeddings "
           f"gives mean |diff| {noise['mean_abs']:.6f} > flash's, argmax "
           f"agreement {noise['argmax_agree']:.6f}); cut to its first group: "
-          f"flash vs "
-          f"plain mean |diff| {agree['mean_abs']:.6f}, max |diff| "
+          f"flash vs plain mean |diff| {agree['mean_abs']:.6f}, max |diff| "
           f"{agree['max_abs']:.6f}, argmax agreement "
           f"{agree['argmax_agree']:.6f} at {agree['robust_positions']} "
           f"positions (tolerance {PREFILL_TOL})")
@@ -1220,11 +1474,11 @@ def run_speculative(dev, model, plan, qmatmul_ops, flash_ops, reqs, loop):
     return out
 
 
-def hybrid_requests(vocab):
-    """Phase 11's wave: phase 9's lengths without the shared system prompt,
-    so that no two prompts share a full page (the prefix cache would
-    otherwise skip tokens that the SSM state needs, a fault of the
-    reference that the port keeps)."""
+def unshared_requests(vocab):
+    """Phases 11 and 14's wave: phase 9's lengths without the shared system
+    prompt, so that no two prompts share a full page (the prefix cache
+    would otherwise skip tokens that the recurrent state needs, a fault of
+    the reference that the port keeps)."""
     from repro_torch.serve import DecodeRequest
 
     rng = np.random.default_rng(CONT_SEED + 10)
@@ -1236,27 +1490,35 @@ def hybrid_requests(vocab):
         for i in range(CONT_REQUESTS)]
 
 
-def run_hybrid(dev, flash_ops, qmatmul_ops, attention):
-    """Phase 11: zamba2 at full width, prefill through flash, then quantized
-    continuous serving paged and dense, each counted from zero."""
+def run_family(dev, flash_ops, qmatmul_ops, attention, arch, overrides=None,
+               recurrent=False, prefill_reps=(5, 2), profile_seq=None):
+    """Phases 11-14: ``arch`` at full width (``overrides`` cut its depth),
+    prefill, then quantized continuous serving paged and dense, each
+    counted from zero. A ``recurrent`` model (the hybrid, RWKV) serves
+    prompts that share no full page; the others serve phase 9's first
+    wave. Each wave is held to the plain loop replayed at the positions it
+    ran at, in batches of the bucket's size: the random hybrid stack
+    amplifies any rounding difference, and an MoE step's capacity couples
+    the rows of a batch above 8 tokens."""
     from repro_torch.plan import build_plan
     from repro_torch.serve import Bucket, BucketPolicy
 
-    model, pre = run_prefill(dev, flash_ops, attention, HYBRID_ARCH)
-    plan = build_plan(HYBRID_ARCH, None, quantized=True, device=dev)
+    model, pre = run_prefill(dev, flash_ops, attention, arch, overrides,
+                             prefill_reps, profile_seq)
+    plan = build_plan(arch, None, quantized=True, device=dev,
+                      config_overrides=overrides)
     t0 = time.perf_counter()
-    plan.load_params(model)           # calibrates the shared block's shifts
+    plan.load_params(model)           # calibrates any a16w8 MLP shifts
     torch.cuda.synchronize()
     cfg = plan.cfg
-    print(f"{cfg.name} serve plan: calibrated MLP shifts "
-          f"{plan.ir.quant['mlp_shifts']} in {time.perf_counter() - t0:.1f} s")
-    per_step = attention_sites(cfg) + 1       # the head + 9 down-projections
-    reqs = hybrid_requests(cfg.vocab)
-    print(f"{cfg.name} continuous: {per_step} qmatmul launches expected per "
-          f"decode step; each wave is held to a plain greedy loop replayed "
-          f"at the positions it ran at (the random stack amplifies any "
-          f"rounding difference, see hybrid_agreement, so the loop runs in "
-          f"batches of the bucket's size)")
+    # the head, and each down-projection call where the MLP is quantized
+    per_step = 1 + (attention_sites(cfg) if cfg.quantized_mlp else 0)
+    reqs = (unshared_requests(cfg.vocab) if recurrent
+            else continuous_requests(cfg.vocab, 0))
+    print(f"{cfg.name} serve plan: quantized MLP {plan.ir.quant['mlp']}, "
+          f"shifts {plan.ir.quant['mlp_shifts']} in "
+          f"{time.perf_counter() - t0:.1f} s; {per_step} qmatmul launches "
+          f"expected per decode step")
 
     def replay(batcher):
         t0 = time.perf_counter()
@@ -1277,10 +1539,37 @@ def run_hybrid(dev, flash_ops, qmatmul_ops, attention):
                          qmatmul_ops, flash_ops)
         out["rows"][label] = row
         out["launches"][label] = row["launches"]
-    if out["rows"]["paged"]["prefix_hits"]:
-        raise AssertionError("a hybrid prompt mapped a prefix page")
+    if recurrent and out["rows"]["paged"]["prefix_hits"]:
+        raise AssertionError(f"a {cfg.name} prompt mapped a prefix page")
     out["micro_run"] = time_micro_run(dev, plan, model, batchers["paged"])
     return out
+
+
+def prefill_line(name, pre):
+    sp = pre["split"]
+    at, median = "", pre["median_ms"]
+    if "split_seq" in pre:
+        at = (f" for a prefill of [{PREFILL_BATCH}, {pre['split_seq']}] "
+              f"(median {pre['split_median_ms']:.4f} ms on the host clock)")
+        median = pre["split_median_ms"]
+    return (f"prefill [{PREFILL_BATCH}, {PREFILL_SEQ}] {name}: median "
+            f"{pre['median_ms']:.4f} ms (host clock, "
+            f"{len(pre['latencies_ms'])} calls after warm-up, all "
+            f"{[round(x, 4) for x in pre['latencies_ms']]}); device{at}: "
+            f"flash {sp['flash_ms']:.4f} ms + qmatmul {sp['qmatmul_ms']:.4f} "
+            f"ms + other ops {sp['other_device_ms']:.4f} ms, idle share "
+            f"{1 - device_busy_ms(sp) / median:.3f} of the median; largest "
+            f"device entries (ms per call) "
+            f"{[(k, round(v, 4)) for k, v in sp['top']]}")
+
+
+def free_card():
+    """Drop the last model's tensors before the next one is loaded."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    print(f"card memory in use before the next model: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
 
 
 L2_BYTES = 50e6   # the H100's L2: rotating over more than this keeps it cold
@@ -1363,6 +1652,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script needs one card",
               file=sys.stderr)
         return 1
+    from repro_torch.configs import get_config
     from repro_torch.configs.paper_models import PAPER_MODELS, build_paper_model
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -1456,7 +1746,8 @@ def main() -> int:
 
     # phase 5: flash kernel vs plain version
     fchk = FlashChecker(flash_ops, attention_ref)
-    for case in FLASH_CASES + [FLASH_PATH, FLASH_PATH_HYBRID]:
+    for case in FLASH_CASES + [FLASH_PATH, FLASH_PATH_HYBRID,
+                               FLASH_PATH_QWEN]:
         err = fchk.compare(*case, dev)
         print(f"flash {case[:7]}{' x100' if case[7] else ''}: kernel vs "
               f"plain max |diff| {err:.3g} (tolerance {FLASH_TOL[case[4]]})")
@@ -1475,15 +1766,7 @@ def main() -> int:
         raise AssertionError(
             f"profiler split found no kernel time: prefill {pre['split']}, "
             f"decode step {srv['split']}")
-    print(f"prefill [{PREFILL_BATCH}, {PREFILL_SEQ}] yi-6b: median "
-          f"{pre['median_ms']:.4f} ms (host clock, 5 calls after warm-up, "
-          f"all {[round(x, 4) for x in pre['latencies_ms']]}); device: flash "
-          f"{pre['split']['flash_ms']:.4f} ms + qmatmul "
-          f"{pre['split']['qmatmul_ms']:.4f} ms + other ops "
-          f"{pre['split']['other_device_ms']:.4f} ms, idle share "
-          f"{1 - device_busy_ms(pre['split']) / pre['median_ms']:.3f} of "
-          f"the median (profiled wall "
-          f"{pre['split']['profiled_wall_ms']:.4f} ms)")
+    print(prefill_line("yi-6b", pre))
     print(f"decode yi-6b quantized batch {SERVE_BATCH}: {srv['step_ms']:.4f} "
           f"ms per step, {srv['tokens_per_s']:.2f} tokens/s (host clock, 32 "
           f"steps); device per step: flash {srv['split']['flash_ms']:.4f} ms "
@@ -1496,6 +1779,7 @@ def main() -> int:
     lm_rows = time_lm_qmatmul(ops.qlinear, qlinear_ref, dev)
     fl = time_flash(flash_ops, attention_ref, dev, FLASH_PATH)
     fl_h = time_flash(flash_ops, attention_ref, dev, FLASH_PATH_HYBRID)
+    fl_q = time_flash(flash_ops, attention_ref, dev, FLASH_PATH_QWEN)
 
     # phase 9: continuous serving at full width, each run counted from zero
     cont = run_continuous(dev, model, srv["plan"], ops, flash_ops)
@@ -1514,28 +1798,35 @@ def main() -> int:
     spec_launches = spec["launches"]["paged"] + spec["launches"]["dense"]
     spec_paged = spec["launches"]["paged"]
 
-    # phase 11: the hybrid family at full width, yi-6b freed first
+    # phases 11-14: the hybrid, the other dense configs, the MoE family and
+    # RWKV at full width, each model freed before the next is loaded
     yi_layers = model.cfg.n_layers
     del model, srv["plan"], cont, spec
-    torch.cuda.empty_cache()
-    hyb = run_hybrid(dev, flash_ops, ops, attention)
-    hp = hyb["prefill"]
-    print(f"prefill [{PREFILL_BATCH}, {PREFILL_SEQ}] {HYBRID_ARCH}: median "
-          f"{hp['median_ms']:.4f} ms (host clock, 5 calls after warm-up, "
-          f"all {[round(x, 4) for x in hp['latencies_ms']]}); device: flash "
-          f"{hp['split']['flash_ms']:.4f} ms + qmatmul "
-          f"{hp['split']['qmatmul_ms']:.4f} ms + other ops "
-          f"{hp['split']['other_device_ms']:.4f} ms, idle share "
-          f"{1 - device_busy_ms(hp['split']) / hp['median_ms']:.3f} of "
-          f"the median; largest device entries (ms per call) "
-          f"{[(k, round(v, 4)) for k, v in hp['split']['top']]}")
-    if hp["split"]["flash_ms"] <= 0:
-        raise AssertionError(f"profiler split found no flash time in the "
-                             f"hybrid prefill: {hp['split']}")
-    print(micro_run_line(f"hybrid micro-run {HYBRID_ARCH} quantized paged, "
-                         f"batch {CONT_BATCH}, k={CONT_K}",
-                         hyb["micro_run"]))
-    hyb_launches = hyb["launches"]["paged"] + hyb["launches"]["dense"]
+    fams = []
+    for phase, arch, kw in (
+            (11, HYBRID_ARCH, dict(recurrent=True)),
+            (12, QWEN_ARCH, {}),
+            (13, MOE_ARCH, dict(overrides={"n_layers": MOE_LAYERS})),
+            (14, RWKV_ARCH, dict(recurrent=True,
+                                 prefill_reps=RWKV_PREFILL_REPS,
+                                 profile_seq=RWKV_PROFILE_SEQ))):
+        free_card()
+        fam = run_family(dev, flash_ops, ops, attention, arch, **kw)
+        fp = fam["prefill"]
+        cut = (f" ({MOE_LAYERS} layers)" if "overrides" in kw else "")
+        print(prefill_line(arch + cut, fp))
+        if (fp["split"]["flash_ms"] > 0) != (fp["launches"] > 0):
+            raise AssertionError(f"profiler split of the {arch} prefill "
+                                 f"disagrees with its {fp['launches']} "
+                                 f"flash launches: {fp['split']}")
+        family = get_config(arch).family
+        print(micro_run_line(f"{family} micro-run {arch}{cut} quantized "
+                             f"paged, batch {CONT_BATCH}, k={CONT_K}",
+                             fam["micro_run"]))
+        fams.append((phase, arch + cut, fam))
+    fam_launches = sum(f["launches"]["paged"] + f["launches"]["dense"]
+                       for _, _, f in fams)
+    fam_flash = sum(f["prefill"]["launches"] for _, _, f in fams)
 
     per = {(r["M"], r["K"], r["N"]): r for r in rows_t + lm_rows}
     # one aie predict of every request configuration, and one quantized
@@ -1551,7 +1842,7 @@ def main() -> int:
         "name": "qmatmul", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": TPU_KERNEL,
         "launches": launches + srv["launches"] + cont_launches
-        + spec_launches + hyb_launches,
+        + spec_launches + fam_launches,
         "launches_by_path": {
             "paper models (phase 3)": launches,
             "yi-6b fifo serve (phase 7)": srv["launches"],
@@ -1561,10 +1852,9 @@ def main() -> int:
             "yi-6b speculative paged serve (phase 10)": spec_paged,
             "yi-6b speculative dense async serve (phase 10)":
                 spec_launches - spec_paged,
-            "zamba2-2.7b continuous paged serve (phase 11)":
-                hyb["launches"]["paged"],
-            "zamba2-2.7b continuous dense serve (phase 11)":
-                hyb["launches"]["dense"]},
+            **{f"{name} continuous {label} serve (phase {phase})":
+               f["launches"][label] for phase, name, f in fams
+               for label in ("paged", "dense")}},
         "exact": True, "max_abs_err": chk.max_abs_err, "cases": chk.cases,
         "work": "one aie predict of every request configuration and one "
                 "quantized yi-6b decode step at batch 4",
@@ -1577,10 +1867,11 @@ def main() -> int:
     }, {
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_TPU_KERNEL,
-        "launches": pre["launches"] + hp["launches"],
-        "launches_by_path": {"yi-6b prefill (phase 6)": pre["launches"],
-                             "zamba2-2.7b prefill (phase 11)":
-                                 hp["launches"]},
+        "launches": pre["launches"] + fam_flash,
+        "launches_by_path": {
+            "yi-6b prefill (phase 6)": pre["launches"],
+            **{f"{name} prefill (phase {phase})": f["prefill"]["launches"]
+               for phase, name, f in fams if f["prefill"]["launches"]}},
         "max_abs_err": fchk.max_abs_err, "cases": fchk.cases,
         "work": f"one call at the path shape [{FLASH_PATH[0]}, "
                 f"{FLASH_PATH[1]}, {FLASH_PATH[3]}] bf16 causal",
@@ -1589,7 +1880,8 @@ def main() -> int:
         "library_ms": fl["library_ms"],
         "shapes": [dict(shape=list(case[:4]), dtype=case[4], **t)
                    for case, t in ((FLASH_PATH, fl),
-                                   (FLASH_PATH_HYBRID, fl_h))],
+                                   (FLASH_PATH_HYBRID, fl_h),
+                                   (FLASH_PATH_QWEN, fl_q))],
     }]}
     print(smi)
     print(json.dumps(record))

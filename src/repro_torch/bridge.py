@@ -4,9 +4,10 @@
 reference ``EmittedModel``: padded quantized weights, int32 biases, SRS
 shifts, ...) into a port :class:`EmittedModel` on a given device, without
 running the passes. ``decoder_lm_from_arrays`` turns the reference's
-decoder-LM parameter tree, as numpy arrays, into a port ``DecoderLM``. The
-port's execution can then be held against the reference's on identical
-weights; ``hybrid_from_arrays`` does the same for the hybrid's tree, and
+decoder-LM parameter tree (dense or MoE), as numpy arrays, into a port
+``DecoderLM``. The port's execution can then be held against the
+reference's on identical weights; ``rwkv_from_arrays`` and
+``hybrid_from_arrays`` do the same for the RWKV and hybrid trees, and
 ``model_from_arrays`` picks by the config's family.
 """
 
@@ -134,26 +135,45 @@ def _unstack(path: str, arr, dims: Sequence[int],
             for idx in np.ndindex(*dims)}
 
 
-def decoder_lm_from_arrays(cfg, params: Mapping[str, Any],
-                           device: DeviceLike = None):
-    """A port ``DecoderLM`` holding the reference's parameters.
-
-    ``params`` is the reference's tree as numpy arrays:
-    ``{"embed": {"table"}, "blocks": {...}, "ln_f": {"scale"},
-    "head": {"w"}}`` with every ``blocks`` leaf stacked ``[L, ...]``.
-    Block ``l`` takes slice ``l`` of every stacked leaf; every parameter
-    keeps its leaf's dtype. Raises on a missing, extra or misshapen leaf.
-    """
-    from repro_torch.models.lm import DecoderLM
-
-    dev = resolve_device(device)
+def _layer_stacked(model: nn.Module, cfg, params: Mapping[str, Any],
+                   device: DeviceLike) -> nn.Module:
+    """Install a tree whose ``blocks`` leaves are stacked ``[L, ...]`` into
+    ``model`` (built on the meta device): block ``l`` takes slice ``l``."""
     got: Dict[str, Any] = {}
     for path, arr in _flatten(params).items():
         if path.startswith("blocks."):
             got.update(_unstack(path, arr, (cfg.n_layers,), "n_layers"))
         else:
             got[path] = np.asarray(arr)
-    return _install(DecoderLM(cfg, device="meta"), got, dev)
+    return _install(model, got, resolve_device(device))
+
+
+def decoder_lm_from_arrays(cfg, params: Mapping[str, Any],
+                           device: DeviceLike = None):
+    """A port ``DecoderLM`` (dense or MoE) holding the reference's
+    parameters.
+
+    ``params`` is the reference's tree as numpy arrays:
+    ``{"embed": {"table"}, "blocks": {...}, "ln_f": {"scale"},
+    "head": {"w"}}`` with every ``blocks`` leaf stacked ``[L, ...]`` (an
+    MoE block's expert weights ``[L, E, ...]``). Block ``l`` takes slice
+    ``l`` of every stacked leaf; every parameter keeps its leaf's dtype.
+    Raises on a missing, extra or misshapen leaf.
+    """
+    from repro_torch.models.lm import DecoderLM
+
+    return _layer_stacked(DecoderLM(cfg, device="meta"), cfg, params, device)
+
+
+def rwkv_from_arrays(cfg, params: Mapping[str, Any],
+                     device: DeviceLike = None):
+    """A port ``RWKVModel`` holding the reference's parameters: ``{"embed":
+    {"table"}, "ln0", "blocks": {"ln1", "ln2", "mix"}, "ln_f", "head":
+    {"w"}}`` with every ``blocks`` leaf stacked ``[L, ...]``, as
+    :func:`decoder_lm_from_arrays` takes them."""
+    from repro_torch.models.rwkv_model import RWKVModel
+
+    return _layer_stacked(RWKVModel(cfg, device="meta"), cfg, params, device)
 
 
 def hybrid_from_arrays(cfg, params: Mapping[str, Any],
@@ -189,4 +209,6 @@ def model_from_arrays(cfg, params: Mapping[str, Any],
     raises ``NotImplementedError`` (from ``DecoderLM``)."""
     if cfg.family == "hybrid":
         return hybrid_from_arrays(cfg, params, device)
+    if cfg.family == "ssm":
+        return rwkv_from_arrays(cfg, params, device)
     return decoder_lm_from_arrays(cfg, params, device)

@@ -18,7 +18,7 @@ from repro_torch.configs.paper_models import (
     build_paper_graph,
     build_paper_model,
 )
-from repro_torch.models.base import ArchConfig
+from repro_torch.models.base import ArchConfig, pending_item
 
 ARCH_IDS: List[str] = [
     "llama_3_2_vision_90b",
@@ -34,7 +34,17 @@ ARCH_IDS: List[str] = [
 ]
 
 # architectures whose config (and family) the port carries
-PORTED_IDS: List[str] = ["yi_6b", "zamba2_2_7b"]
+PORTED_IDS: List[str] = [
+    "rwkv6_7b", "yi_6b", "qwen1_5_4b", "mistral_large_123b", "qwen1_5_110b",
+    "phi3_5_moe_42b", "kimi_k2_1t", "zamba2_2_7b",
+]
+
+# the family of each id the port does not carry yet (its error names the
+# roadmap item that ports it)
+PENDING_FAMILIES: Dict[str, str] = {
+    "llama_3_2_vision_90b": "vlm",
+    "seamless_m4t_large_v2": "encdec",
+}
 
 # CLI aliases (assignment spelling -> module name)
 ALIASES: Dict[str, str] = {
@@ -57,8 +67,9 @@ def get_config(name: str) -> ArchConfig:
         raise KeyError(f"unknown arch {name!r}; known: {ARCH_IDS}")
     if mod_name not in PORTED_IDS:
         raise NotImplementedError(
-            f"arch {name!r} is not ported yet (ROADMAP Queue 1 item 12: the "
-            f"other families); ported: {PORTED_IDS}")
+            f"arch {name!r} is not ported yet "
+            f"({pending_item(PENDING_FAMILIES[mod_name])}); ported: "
+            f"{PORTED_IDS}")
     return importlib.import_module(f"repro_torch.configs.{mod_name}").CONFIG
 
 
@@ -85,6 +96,6 @@ def reduced_config(name: str) -> ArchConfig:
     return cfg.with_(**kw)
 
 
-__all__ = ["ALIASES", "ARCH_IDS", "PAPER_MODELS", "PORTED_IDS",
-           "build_paper_graph", "build_paper_model", "get_config",
-           "reduced_config"]
+__all__ = ["ALIASES", "ARCH_IDS", "PAPER_MODELS", "PENDING_FAMILIES",
+           "PORTED_IDS", "build_paper_graph", "build_paper_model",
+           "get_config", "reduced_config"]

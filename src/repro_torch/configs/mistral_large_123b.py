@@ -1,0 +1,18 @@
+"""mistral-large-123b [dense]. 88L d_model=12288 96H (kv=8) d_ff=28672
+vocab=32768. [hf:mistralai/Mistral-Large-Instruct-2407; unverified]"""
+
+from repro_torch.models.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="mistral-large-123b",
+    family="dense",
+    n_layers=88,
+    d_model=12288,
+    n_heads=96,
+    n_kv=8,
+    d_ff=28672,
+    vocab=32768,
+    head_dim=128,
+    rope_theta=1000000.0,
+    optimizer="adafactor",
+)

@@ -1,0 +1,19 @@
+"""phi3.5-moe-42b-a6.6b [moe] — 16 experts top-2. 32L d_model=4096 32H (kv=8)
+expert d_ff=6400 vocab=32064. [hf:microsoft/Phi-3.5-MoE-instruct; hf]"""
+
+from repro_torch.models.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="phi3.5-moe-42b-a6.6b",
+    family="moe",
+    n_layers=32,
+    d_model=4096,
+    n_heads=32,
+    n_kv=8,
+    d_ff=6400,
+    moe_d_ff=6400,
+    n_experts=16,
+    top_k=2,
+    vocab=32064,
+    head_dim=128,
+)

@@ -1,1 +1,2 @@
-"""Plain functions on tensors: the layers of the dense decoder LM."""
+"""Plain functions on tensors: the layers of the decoder LMs (dense and
+MoE), the hybrid and RWKV."""

@@ -30,6 +30,15 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), w.float())
 
 
+def bmm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Batched ``x @ w`` ([E, M, K] x [E, K, N]), products summed in fp32,
+    fp32 out: :func:`matmul_f32` per batch entry (one cuBLAS batched GEMM
+    with an fp32 output on the card)."""
+    if x.is_cuda and x.dtype == w.dtype == torch.bfloat16:
+        return torch.bmm(x, w, out_dtype=torch.float32)
+    return torch.bmm(x.float(), w.float())
+
+
 def linear(params: Mapping[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     """y = x @ w (+ b): fp32 accumulation, output in x's dtype."""
     y = matmul_f32(x, params["w"])

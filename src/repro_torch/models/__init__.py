@@ -1,5 +1,5 @@
-"""The port's models: the dense decoder LM, the hybrid (Mamba2 + a shared
-attention block) and their config types."""
+"""The port's models: the decoder LM (dense or MoE), RWKV6, the hybrid
+(Mamba2 + a shared attention block) and their config types."""
 
 from repro_torch.models.base import (
     SHAPES,

@@ -2,7 +2,8 @@
 decode LM head and the family dispatch.
 
 A jax-free copy of ``repro.models.base`` for the families the port
-carries (the dense decoder LM and the hybrid). There is no ``ParamSpec``:
+carries (the dense and MoE decoder LMs, RWKV and the hybrid). There is no
+``ParamSpec``:
 a model is an ``nn.Module`` that owns its parameters, in the reference's
 layout (weights ``(d_in, d_out)``, so ``x @ w`` needs no transpose), and
 :class:`PortedLM` holds what the families share.
@@ -97,7 +98,19 @@ SHAPES: Dict[str, ShapeSpec] = {
 # with ~5e-4 logit resolution over +-16 (out_shift 11).
 HEAD_SHIFTS = (5, 8, 11)
 
-PORTED_FAMILIES = ("dense", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+
+# the roadmap item that ports each family the port does not carry yet
+PENDING_ITEMS: Dict[str, str] = {
+    "encdec": "ROADMAP Queue 1 item 1: the encoder-decoder family",
+    "vlm": "ROADMAP Queue 1 item 2: the vision LM family",
+}
+
+
+def pending_item(family: str) -> str:
+    """The roadmap item that ports ``family`` (for error messages)."""
+    return PENDING_ITEMS.get(family, f"no roadmap item: unknown family "
+                                     f"{family!r}")
 
 
 class PageView(NamedTuple):
@@ -155,7 +168,8 @@ def state_batch_axes(state: Mapping[str, torch.Tensor],
     """Per-leaf index of the batch axis of a decode state.
 
     Every batch-laned leaf of the port's states is ``[L, B, ...]`` (axis
-    1): the KV caches, and the hybrid's SSM and conv states, whose
+    1): the KV caches, RWKV's carried inputs and wkv state, and the
+    hybrid's SSM and conv states, whose
     reference ``[G, E, B, ...]`` layout the port flattens to ``[G * E, B,
     ...]``. With ``paged`` the pool leaves have a page axis instead and map
     to ``-1``: they need no per-slot wipe, since stale pages are invisible
@@ -192,20 +206,23 @@ def wipe_state_slots(state: Mapping[str, torch.Tensor],
 
 
 def model_class(family: str) -> type:
-    """The port's model class of a family; raises for a family the port
-    does not carry."""
-    if family == "dense":
+    """The port's model class of a family (the reference's
+    ``build_model`` table); raises for a family the port does not carry."""
+    if family in ("dense", "moe"):
         from repro_torch.models.lm import DecoderLM
 
         return DecoderLM
+    if family == "ssm":
+        from repro_torch.models.rwkv_model import RWKVModel
+
+        return RWKVModel
     if family == "hybrid":
         from repro_torch.models.hybrid import HybridModel
 
         return HybridModel
     raise NotImplementedError(
-        f"family {family!r} is not ported yet (ROADMAP Queue 1 item 12: "
-        "the other families); the port carries "
-        f"{', '.join(PORTED_FAMILIES)}")
+        f"family {family!r} is not ported yet ({pending_item(family)}); "
+        f"the port carries {', '.join(PORTED_FAMILIES)}")
 
 
 def build_model(cfg: ArchConfig, device: DeviceLike = None,
@@ -256,11 +273,35 @@ def decode_block_head_logits(head_w: torch.Tensor, x: torch.Tensor,
     return matmul_f32(x, head_w)
 
 
-# Leaves the reference initialises to 0 and to 1; every other leaf is
-# normal: the embedding table N(0, d_model**-0.5), a weight N(0,
-# d_in**-0.5).
-ZERO_LEAVES = ("b", "conv_b", "dt_bias", "A_log")
-ONE_LEAVES = ("scale", "norm_scale", "D")
+# The reference's initialiser of each leaf, by leaf name: zeros, ones,
+# "small" (std 0.02: RWKV's token-shift mixes and per-head bonus), the
+# embedding table (std d_model**-0.5), and otherwise a normal weight at
+# fan-in scale.
+ZERO_LEAVES = ("b", "bias", "conv_b", "dt_bias", "A_log", "w0", "ln_x_bias")
+ONE_LEAVES = ("scale", "norm_scale", "D", "ln_x_scale")
+SMALL_LEAVES = ("mu_r", "mu_k", "mu_v", "mu_w", "mu_g", "mu_ck", "mu_cr",
+                "u")
+SMALL_STD = 0.02
+
+
+def init_kind(name: str, shape: Tuple[int, ...]) -> Tuple[str, float]:
+    """``(kind, scale)`` of the reference's initialiser for the parameter
+    ``name`` of ``shape``: kind is "zeros" or "ones" (scale is the fill
+    value) or "small", "embed" or "normal" (scale is the std of a normal
+    draw). A normal weight's std is its fan-in ``shape[-2] ** -0.5``
+    (weights are ``(..., d_in, d_out)``, the expert axis in front), as
+    ``repro.dist.sharding._fan_in`` takes it."""
+    leaf = name.rsplit(".", 1)[-1]
+    if leaf in ZERO_LEAVES:
+        return "zeros", 0.0
+    if leaf in ONE_LEAVES:
+        return "ones", 1.0
+    if leaf in SMALL_LEAVES:
+        return "small", SMALL_STD
+    if name == "embed.table":
+        return "embed", shape[-1] ** -0.5
+    fan_in = shape[-2] if len(shape) >= 2 else max(shape[-1], 1)
+    return "normal", fan_in ** -0.5
 
 
 class PortedLM:
@@ -268,9 +309,10 @@ class PortedLM:
     seeded initialisation, the int8 copies of the LM head and of every
     SwiGLU down-projection, and the decode head.
 
-    A model sets ``cfg``, ``embed`` and ``head`` and lists its
-    attention blocks (``models.blocks.AttnBlock``) in
-    :meth:`ffn_blocks`.
+    A model sets ``cfg``, ``embed`` and ``head`` and lists the blocks
+    with a dense SwiGLU ``ffn`` (``models.blocks.AttnBlock``) in
+    :meth:`ffn_blocks`: none for the MoE and RWKV families, as the
+    reference's quantize pass has no MLP route for them.
     """
 
     _head_q: Optional[torch.Tensor] = None
@@ -281,7 +323,7 @@ class PortedLM:
 
     def ffn_blocks(self):
         """The blocks whose SwiGLU FFN the quantized plan runs a16w8."""
-        raise NotImplementedError
+        return []
 
     def mlp_down_weights(self):
         """Every ``ffn.down`` weight the a16w8 path quantizes (the
@@ -291,23 +333,18 @@ class PortedLM:
     @torch.no_grad()
     def init_params(self, seed: int = 0):
         """Random parameters from a ``torch.Generator`` on the model's
-        device, with the reference's initialisers (:data:`ZERO_LEAVES`,
-        :data:`ONE_LEAVES`, otherwise normal). The stream differs from the
-        reference's ``jax.random``; tests carry weights across with the
-        bridge."""
+        device, with the reference's initialisers (:func:`init_kind`). The
+        stream differs from the reference's ``jax.random``; tests carry
+        weights across with the bridge."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         for name, p in self.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf in ONE_LEAVES:
-                p.fill_(1.0)
-            elif leaf in ZERO_LEAVES:
-                p.zero_()
+            kind, scale = init_kind(name, tuple(p.shape))
+            if kind in ("zeros", "ones"):
+                p.fill_(scale)
             else:
-                std = (p.shape[-1] if name == "embed.table"
-                       else p.shape[0]) ** -0.5
                 p.copy_(torch.randn(p.shape, generator=gen,
-                                    device=self.device) * std)
+                                    device=self.device) * scale)
         self.reset_quantized()
         return self
 

@@ -1,4 +1,5 @@
-"""The pre-norm residual transformer block of the dense decoder LM."""
+"""The pre-norm residual transformer block of the decoder LMs: GQA
+attention, then a dense SwiGLU FFN or a mixture of experts."""
 
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from repro_torch.layers.attention import (
 )
 from repro_torch.layers.linear import quantize_weight
 from repro_torch.layers.mlp import swiglu
+from repro_torch.layers.moe import moe
 from repro_torch.layers.norm import rmsnorm
 from repro_torch.models.base import ArchConfig
 
@@ -40,10 +42,25 @@ def norm_params(d: int, *, device, dtype) -> nn.ParameterDict:
                                                   dtype=dtype)})
 
 
+def swiglu_params(d: int, d_ff: int, *, device, dtype) -> nn.ModuleDict:
+    return nn.ModuleDict({
+        "gate": linear_params(d, d_ff, device=device, dtype=dtype),
+        "up": linear_params(d, d_ff, device=device, dtype=dtype),
+        "down": linear_params(d_ff, d, device=device, dtype=dtype),
+    })
+
+
 class AttnBlock(nn.Module):
     """GQA self-attention then a SwiGLU FFN, each behind an RMS norm and a
     residual. Parameter names follow the reference's tree (``ln1``,
-    ``attn.{wq,wk,wv,wo}``, ``ln2``, ``ffn.{gate,up,down}``)."""
+    ``attn.{wq,wk,wv,wo}``, ``ln2``, ``ffn.{gate,up,down}``).
+
+    In the MoE family (``cfg.family == "moe"``) the FFN is a mixture of
+    experts instead: ``moe.router`` [d, E] and ``moe.{w_gate,w_up}`` [E,
+    d, f], ``moe.w_down`` [E, f, d] with f = ``moe_d_ff``, plus, with
+    ``n_shared_experts``, a SwiGLU ``shared`` of width ``n_shared_experts
+    * moe_d_ff`` that every token runs. Only the dense ``ffn`` has the
+    quantized (a16w8) down-projection, as in the reference."""
 
     def __init__(self, cfg: ArchConfig, *, device, dtype):
         super().__init__()
@@ -57,11 +74,19 @@ class AttnBlock(nn.Module):
             "wo": linear_params(cfg.n_heads * hd, d, **kw),
         })
         self.ln2 = norm_params(d, **kw)
-        self.ffn = nn.ModuleDict({
-            "gate": linear_params(d, cfg.d_ff, **kw),
-            "up": linear_params(d, cfg.d_ff, **kw),
-            "down": linear_params(cfg.d_ff, d, **kw),
-        })
+        self.use_moe = cfg.family == "moe"
+        if self.use_moe:
+            E, f = cfg.n_experts, cfg.moe_d_ff
+            self.moe = nn.ParameterDict({
+                "router": empty_param(d, E, **kw),
+                "w_gate": empty_param(E, d, f, **kw),
+                "w_up": empty_param(E, d, f, **kw),
+                "w_down": empty_param(E, f, d, **kw),
+            })
+            self.shared = (swiglu_params(d, cfg.n_shared_experts * f, **kw)
+                           if cfg.n_shared_experts else None)
+        else:
+            self.ffn = swiglu_params(d, cfg.d_ff, **kw)
         self._down_q: Optional[Tuple[int, torch.Tensor]] = None
 
     def quantized_down(self, w_shift: int) -> torch.Tensor:
@@ -76,15 +101,25 @@ class AttnBlock(nn.Module):
                             quantize_weight(self.ffn["down"]["w"], w_shift))
         return self._down_q[1]
 
-    def ffn_part(self, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    def ffn_part(self, x: torch.Tensor, cfg: ArchConfig
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The FFN of normed x: ``(y, MoE aux loss)``, the aux None for the
+        dense FFN."""
+        if self.use_moe:
+            y, aux = moe(self.moe, x, n_experts=cfg.n_experts,
+                         top_k=cfg.top_k, n_groups=cfg.moe_groups or 1)
+            if self.shared is not None:
+                y = y + swiglu(self.shared, x)
+            return y, aux
         if not cfg.quantized_mlp:
-            return swiglu(self.ffn, x)
+            return swiglu(self.ffn, x), None
         quant = (cfg.mlp_x_shift, cfg.mlp_w_shift, cfg.mlp_out_shift)
         return swiglu(self.ffn, x, quant=quant,
-                      down_wq=self.quantized_down(cfg.mlp_w_shift))
+                      down_wq=self.quantized_down(cfg.mlp_w_shift)), None
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                cfg: ArchConfig) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Prefill of x [B, S, d]: ``(x, MoE aux loss or None)``."""
         h = rmsnorm(self.ln1, x)
         h = self_attention(
             self.attn, h, positions,
@@ -92,7 +127,8 @@ class AttnBlock(nn.Module):
             rope_theta=cfg.rope_theta, q_chunk=cfg.q_chunk,
         )
         x = x + h
-        return x + self.ffn_part(rmsnorm(self.ln2, x), cfg)
+        h, aux = self.ffn_part(rmsnorm(self.ln2, x), cfg)
+        return x + h, aux
 
     def decode(self, x: torch.Tensor, cache_k: torch.Tensor,
                cache_v: torch.Tensor, pos: Optional[int], cfg: ArchConfig, *,
@@ -124,4 +160,5 @@ class AttnBlock(nn.Module):
                 self.attn, h, cache_k, cache_v, pos,
                 window_start=window_start, **heads)
         x = x + h
-        return x + self.ffn_part(rmsnorm(self.ln2, x), cfg), ck, cv
+        h, _ = self.ffn_part(rmsnorm(self.ln2, x), cfg)
+        return x + h, ck, cv

@@ -136,7 +136,7 @@ class HybridModel(PortedLM, nn.Module):
                 x = x + mamba2(layer.mamba, rmsnorm(layer.ln, x),
                                head_dim=cfg.ssm_head_dim,
                                d_state=cfg.ssm_state, chunk=cfg.ssd_chunk)
-            x = self.shared_attn(x, positions, cfg)
+            x, _ = self.shared_attn(x, positions, cfg)
         return rmsnorm(self.ln_f, x)
 
     @torch.inference_mode()

@@ -1,4 +1,5 @@
-"""Decoder-only LM, dense GQA (yi-6b and its kin).
+"""Decoder-only LM, dense GQA or MoE (yi-6b, qwen1.5-4b, qwen1.5-110b,
+mistral-large-123b, phi3.5-moe-42b-a6.6b, kimi-k2-1t-a32b).
 
 The reference scanned one block over stacked layer parameters; here the
 blocks are an ``nn.ModuleList`` and the scan is a loop over it.
@@ -26,7 +27,7 @@ from repro_torch.models.blocks import AttnBlock, norm_params
 
 
 class DecoderLM(PortedLM, nn.Module):
-    """The dense decoder LM with its parameters, on one device.
+    """The decoder LM (dense or MoE) with its parameters, on one device.
 
     Parameters are allocated uninitialised; fill them with
     ``init_params`` (random, from a seed; see ``models.base.PortedLM``) or
@@ -39,10 +40,10 @@ class DecoderLM(PortedLM, nn.Module):
     def __init__(self, cfg: ArchConfig, device: DeviceLike = None,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"DecoderLM carries the dense family, not {cfg.family!r} "
-                "(ROADMAP Queue 1 item 12)")
+                f"DecoderLM carries the dense and moe families, not "
+                f"{cfg.family!r}")
         dev = resolve_device(device)
         kw = dict(device=dev, dtype=dtype)
         self.cfg = cfg
@@ -55,23 +56,29 @@ class DecoderLM(PortedLM, nn.Module):
             torch.empty(cfg.d_model, cfg.vocab, **kw), requires_grad=False)})
 
     def ffn_blocks(self):
-        return list(self.blocks)
+        return [] if self.cfg.family == "moe" else list(self.blocks)
 
     # -- prefill --------------------------------------------------------------
 
-    def backbone(self, tokens: torch.Tensor) -> torch.Tensor:
+    def backbone(self, tokens: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The normed hiddens [B, S, d] of ``tokens`` [B, S], and the MoE
+        aux load-balance loss summed over the layers (zero when dense)."""
         B, S = tokens.shape
         x = embed(self.embed, tokens)
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for blk in self.blocks:
-            x = blk(x, positions, self.cfg)
-        return rmsnorm(self.ln_f, x)
+            x, a = blk(x, positions, self.cfg)
+            if a is not None:
+                aux = aux + a
+        return rmsnorm(self.ln_f, x), aux
 
     @torch.inference_mode()
     def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Prefill entry point: fp32 logits [B, S, V] for ``batch["tokens"]``
         [B, S]."""
-        x = self.backbone(batch["tokens"])
+        x, _ = self.backbone(batch["tokens"])
         return matmul_f32(x, self.head["w"])
 
     # -- decode ---------------------------------------------------------------

@@ -3,7 +3,7 @@
     ResolveDevice -> Quantize -> Compile
 
 The reference's mesh, sharding-rule and stage-placement passes have no
-counterpart on one card (ROADMAP Queue 1 item 14). Every decision is
+counterpart on one card (ROADMAP Queue 1 item 4). Every decision is
 recorded in the :class:`~repro_torch.plan.ir.PlanIR`.
 
 * **ResolveDevice** picks the card (or the device the caller names).

@@ -213,3 +213,151 @@ def serve(batcher, trace) -> Dict[str, List[int]]:
             batcher.submit(DecodeRequest(rid, p, max_new_tokens=n))
         out.update({r: v.tokens for r, v in batcher.run().items()})
     return out
+
+
+# ---------------------------------------------------------------------------
+# the other families' own streams (hybrid, MoE, RWKV, qwen): the reference's
+# batcher in one mode on a reduced config, the gaps of a JAX greedy loop
+# teacher-forced along its streams, and the port's batcher on the same
+# weights
+# ---------------------------------------------------------------------------
+
+FAMILY_BUCKET = (64, 2)        # (max_len, batch)
+FAMILY_PAGED = (64, 16)        # tests/test_paged_serve.py
+TRACES = {"parity": PARITY_TRACE, "shared": SHARED_TRACE}
+
+
+@functools.lru_cache(maxsize=None)
+def family_params(arch: str, seed: int):
+    """The reference's parameters of ``arch``'s reduced config."""
+    from repro.configs import reduced_config
+    from repro.dist.sharding import init_params
+    from repro.models import build_model
+
+    return init_params(jax.random.PRNGKey(seed),
+                       build_model(reduced_config(arch)).param_specs())
+
+
+@functools.lru_cache(maxsize=None)
+def family_arrays(arch: str, seed: int, fp32: bool = False):
+    """The reference's tree as numpy arrays (bf16 kept, or fp32)."""
+    dtype = np.float32 if fp32 else None
+    return jax.tree.map(lambda a: np.asarray(a, dtype), family_params(arch,
+                                                                      seed))
+
+
+@functools.lru_cache(maxsize=None)
+def _family_batcher_streams(arch, seed, quantized, schedule, k, paged, spec,
+                            trace_name):
+    """The reference batcher's streams on a trace, one wave after another,
+    with its plan and sharded (calibrated) parameters."""
+    from repro.configs import reduced_config
+    from repro.launch.mesh import make_debug_mesh
+    from repro.serve import Bucket, BucketPolicy, DecodeRequest, ServeBatcher
+
+    max_len, batch = FAMILY_BUCKET
+    kw = {}
+    if schedule == "continuous":
+        kw = dict(steps_per_dispatch=k,
+                  paged=FAMILY_PAGED if paged else None,
+                  speculative=k if spec else 0)
+    mesh = make_debug_mesh(1, 1)
+    tokens: Dict[str, List[int]] = {}
+    with mesh:
+        b = ServeBatcher(reduced_config(arch), mesh, quantized=quantized,
+                         policy=BucketPolicy([Bucket(max_len, batch)]),
+                         schedule=schedule, **kw
+                         ).load_params(family_params(arch, seed))
+        for wave in waves(TRACES[trace_name]):
+            for rid, p, n in wave:
+                b.submit(DecodeRequest(rid, p, max_new_tokens=n))
+            tokens.update({r: v.tokens for r, v in b.run().items()})
+    return tokens, b.plan, b.params
+
+
+@functools.lru_cache(maxsize=None)
+def _family_step(cfg):
+    """The reference's jitted ``decode_step`` for a (calibrated) config."""
+    from repro.models import build_model
+
+    return jax.jit(build_model(cfg).decode_step)
+
+
+def family_reference(arch: str, seed: int, quantized: bool, schedule: str,
+                     k: int, paged: bool, trace_name: str, *,
+                     skipped: int = 0, spec: bool = False):
+    """``(tokens, gaps, loop)``: the reference batcher's streams on a trace
+    in one mode, and per request the top-2 logit gaps and argmax tokens of
+    a JAX greedy loop from position 0 teacher-forced along them.
+
+    ``skipped`` N > 0 reproduces the prefix cache on waves after the
+    first: the recurrent leaves (every leaf but the KV cache) are zeroed
+    after N prompt tokens, as a follower that maps N tokens of published
+    pages starts from a fresh recurrent state (the KV rows of those tokens
+    are the same either way)."""
+    tokens, plan, sparams = _family_batcher_streams(
+        arch, seed, quantized, schedule, k, paged, spec, trace_name)
+    step = _family_step(plan.cfg)
+    gaps: Dict[str, List[float]] = {}
+    loop: Dict[str, List[int]] = {}
+    with plan.activate():
+        for w, wave in enumerate(waves(TRACES[trace_name])):
+            for rid, prompt, n in wave:
+                state = plan.fresh_decode_state(1, FAMILY_BUCKET[0])
+                g, top = [], []
+                for i in range(len(prompt) + n - 1):
+                    if w and skipped and i == skipped:
+                        state = {name: (leaf if name in ("cache_k", "cache_v")
+                                        else jnp.zeros_like(leaf))
+                                 for name, leaf in state.items()}
+                    t_in = (prompt[i] if i < len(prompt)
+                            else tokens[rid][i - len(prompt)])
+                    logits, state = step(sparams, state,
+                                         jnp.asarray([t_in], jnp.int32),
+                                         jnp.int32(i))
+                    if i >= len(prompt) - 1:
+                        lg = np.asarray(logits[0], np.float64)
+                        top.append(int(np.argmax(lg)))
+                        lg = np.sort(lg)
+                        g.append(float(lg[-1] - lg[-2]))
+                gaps[rid], loop[rid] = g, top
+    return tokens, gaps, loop
+
+
+def family_port_streams(arch: str, seed: int, quantized: bool,
+                        schedule: str, k: int, paged: bool, trace, *,
+                        spec: bool = False):
+    """``(batcher, tokens)``: the port's batcher in one mode on the
+    reference's weights of ``arch``'s reduced config, over every wave of
+    ``trace``."""
+    from repro_torch.plan import build_plan
+    from repro_torch.serve import Bucket, BucketPolicy
+
+    plan = build_plan(arch, None, debug=True, quantized=quantized,
+                      device="cpu")
+    kw = {}
+    if schedule == "continuous":
+        kw = dict(steps_per_dispatch=k,
+                  paged=FAMILY_PAGED if paged else None,
+                  speculative=k if spec else 0)
+    b = plan.make_batcher(policy=BucketPolicy([Bucket(*FAMILY_BUCKET)]),
+                          schedule=schedule, **kw
+                          ).load_params(family_arrays(arch, seed))
+    return b, serve(b, trace)
+
+
+def assert_gap_streams(got: Dict[str, Sequence[int]],
+                       want: Dict[str, List[int]],
+                       gaps: Dict[str, List[float]], min_gap: float,
+                       context=()) -> int:
+    """Each stream has the reference's length and equals it up to the
+    first step whose reference gap is below ``min_gap``; returns the
+    number of tokens compared."""
+    compared = 0
+    for rid in want:
+        assert len(got[rid]) == len(want[rid]), (context, rid)
+        n = next((i for i, g in enumerate(gaps[rid]) if g < min_gap),
+                 len(want[rid]))
+        assert list(got[rid][:n]) == want[rid][:n], (context, rid, n)
+        compared += n
+    return compared

@@ -233,14 +233,21 @@ _LM_SHAPES = [(4096, 64000, "int8", "int8"), (11008, 4096, "int16", "int8")]
 # zamba2's: the LM head and the shared block's down-projection
 _HYBRID_SHAPES = [(2560, 32000, "int8", "int8"),
                   (10240, 2560, "int16", "int8")]
+# qwen1.5-4b's head (ragged N) and down-projection, the heads of
+# phi3.5-moe (ragged N) and rwkv6-7b
+_FAMILY_SHAPES = [(2560, 151936, "int8", "int8"),
+                  (6912, 2560, "int16", "int8"),
+                  (4096, 32064, "int8", "int8"),
+                  (4096, 65536, "int8", "int8")]
 
 
-@pytest.mark.parametrize("K,N,dt_a,dt_b", _LM_SHAPES + _HYBRID_SHAPES)
+@pytest.mark.parametrize("K,N,dt_a,dt_b",
+                         _LM_SHAPES + _HYBRID_SHAPES + _FAMILY_SHAPES)
 @pytest.mark.parametrize("split", [False, True], ids=["one", "split"])
 def test_qmatmul_m8_lm_shapes_equal_plain(cuda, K, N, dt_a, dt_b, split):
-    """M = 8 (the continuous bucket's batch) at the yi-6b and zamba2 LM
-    shapes, over the full int16 range, with one split of K and with
-    several."""
+    """M = 8 (the continuous bucket's batch) at the LM shapes of yi-6b,
+    zamba2, qwen1.5-4b, phi3.5-moe and rwkv6-7b, over the full int16
+    range, with one split of K and with several."""
     M = 8
     rng = np.random.default_rng(K + N)
     lo = -(2 ** 15) if dt_a == "int16" else -128
@@ -351,11 +358,11 @@ def test_reduced_hybrid_forward_launches_flash_once_per_group(cuda):
     assert torch.isfinite(logits).all()
 
 
-def _hold_to_cpu_run(model, got, want, forced=False):
+def _hold_to_cpu_run(model, got, want, forced=False, min_compared=20):
     """Every card stream has its length and equals the CPU run's up to the
     first step whose gap, in a CPU greedy loop from position 0 per request
     (teacher-forced along the CPU run's streams with ``forced``), is under
-    ``_CARD_MIN_GAP``."""
+    ``_CARD_MIN_GAP``; at least ``min_compared`` tokens are compared."""
     compared = 0
     for rid, prompt, n in _TRACE:
         state = model.decode_state(1, 64)
@@ -374,7 +381,7 @@ def _hold_to_cpu_run(model, got, want, forced=False):
         assert len(got[rid]) == n
         assert got[rid][:m] == want[rid][:m], (rid, got[rid], want[rid])
         compared += m
-    assert compared >= 20
+    assert compared >= min_compared
 
 
 @pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
@@ -422,3 +429,81 @@ def test_qmatmul_m32_verify_shapes_equal_plain(cuda, K, N, dt_a, dt_b, plan):
         kw = dict(shift=shift, out_dtype="int16")
         assert torch.equal(ops.qlinear_planned(x, w, None, p, **kw),
                            qlinear_ref(x, w, None, **kw))
+
+
+# ---------------------------------------------------------------------------
+# qwen1.5-4b, the MoE family and RWKV on the card
+# ---------------------------------------------------------------------------
+
+
+def test_flash_at_the_qwen_prefill_shape(cuda):
+    """[2 x 20 heads, 2048, 128] bf16 causal, qwen1.5-4b's prefill."""
+    q, k, v = _qkv(np.random.default_rng(40), 40, 2048, 2048, 128,
+                   torch.bfloat16, cuda)
+    got = flash_ops.flash_attention(q, k, v, causal=True)
+    want = attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=0.0)
+
+
+_FAMILIES = ["qwen1.5-4b", "phi3.5-moe-42b-a6.6b", "rwkv6-7b"]
+
+
+@pytest.mark.parametrize("arch", _FAMILIES)
+def test_reduced_family_forward_on_card_equals_cpu(cuda, arch):
+    """The reduced config's prefill of [2, 40] tokens on the card: flash
+    once per attention layer (none in RWKV), logits within mean 0.05 of
+    the CPU run, and its argmax where the CPU's top-2 gap exceeds 0.2."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import build_model
+
+    cfg = reduced_config(arch)
+    weights = build_model(cfg, device="cpu").init_params(0).state_dict()
+    models = {}
+    for dev in ("cpu", "cuda"):
+        models[dev] = build_model(cfg, device=dev)
+        models[dev].load_state_dict(weights)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 40)))
+    want = models["cpu"]({"tokens": toks})
+    before = flash_ops.launches
+    got = models["cuda"]({"tokens": toks.to(cuda)})
+    torch.cuda.synchronize()
+    sites = 0 if cfg.family == "ssm" else cfg.n_layers
+    assert flash_ops.launches == before + sites
+    assert torch.isfinite(got).all()
+    got = got.cpu()
+    top2 = torch.topk(want, 2, dim=-1).values
+    robust = (top2[..., 0] - top2[..., 1]) > 0.2
+    assert robust.sum() >= 20
+    assert torch.equal(got.argmax(-1)[robust], want.argmax(-1)[robust])
+    assert (got - want).abs().mean() < 0.05
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("quantized", [False, True],
+                         ids=["float", "quantized"])
+@pytest.mark.parametrize("arch", _FAMILIES)
+def test_family_serving_on_card_equals_cpu(cuda, arch, quantized, paged):
+    """The reduced config served continuous (k = 4) on the card gives its
+    CPU run's tokens, and launches qmatmul per decode step once for the
+    head plus, for qwen, once per layer's down-projection. The random
+    reduced qwen and phi3.5-moe keep fewer steps above the card's gap
+    than yi-6b's, so 10 tokens is the least compared."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import build_model
+
+    cfg = reduced_config(arch)
+    weights = build_model(cfg, device="cpu").init_params(0).state_dict()
+    cpu_b, want = _continuous("cpu", quantized, paged, weights, arch=arch)
+    before = ops.launches
+    card_b, got = _continuous("cuda", quantized, paged, weights, arch=arch)
+    torch.cuda.synchronize()
+    runs = card_b.scheduler.stats()["micro_runs"]
+    per_step = 1 + (cfg.n_layers if cfg.family == "dense" else 0)
+    assert ops.launches - before == (per_step * 4 * runs if quantized
+                                     else 0)
+    _hold_to_cpu_run(cpu_b.plan.model, got, want, min_compared=10)
+    if paged:
+        s = card_b.stats()["paged"]
+        assert s["pages_in_use"] == s["scratch_pages"] + s["prefix_entries"]

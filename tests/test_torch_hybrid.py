@@ -31,13 +31,22 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_serve_ref import PARITY_TRACE, SHARED_TRACE, waves
+from _torch_serve_ref import (
+    FAMILY_BUCKET,
+    FAMILY_PAGED,
+    PARITY_TRACE,
+    SHARED_TRACE,
+    assert_gap_streams,
+    family_arrays,
+    family_params,
+    family_port_streams,
+    family_reference,
+)
 
 import repro.layers.attention as jattn
 import repro_torch.layers.attention as tattn
 from repro.configs import reduced_config as jax_reduced_config
 from repro.dist.sharding import init_params
-from repro.launch.mesh import make_debug_mesh
 from repro.models import build_model as jax_build_model
 from repro.models.base import PageView as JaxPageView
 from repro.models.base import paged_state_specs
@@ -46,12 +55,12 @@ from repro_torch.configs import reduced_config
 from repro_torch.models.base import PageView, wipe_state_slots
 from repro_torch.models.hybrid import HybridModel
 from repro_torch.plan import build_plan
-from repro_torch.serve import Bucket, BucketPolicy, DecodeRequest
+from repro_torch.serve import Bucket, BucketPolicy
 from repro_torch.serve.validation import resolve_speculative
 
 ARCH = "zamba2_2_7b"
-BUCKET = Bucket(64, 2)
-PAGED = (64, 16)            # tests/test_paged_serve.py
+BUCKET = Bucket(*FAMILY_BUCKET)
+PAGED = FAMILY_PAGED
 # the reference's compiled scans keep excess bf16 precision, which moves a
 # decode logit by up to about 0.05 against the port's eager rounding (a
 # 0.047 gap flips on the parity trace), and a continuous slot decodes at
@@ -67,19 +76,13 @@ def jcfg():
     return jax_reduced_config(ARCH)
 
 
-@functools.lru_cache(maxsize=None)
 def jparams(seed):
-    return init_params(jax.random.PRNGKey(seed),
-                       jax_build_model(jcfg()).param_specs())
+    return family_params(ARCH, seed)
 
 
-@functools.lru_cache(maxsize=None)
 def arrays(seed, fp32=False):
     """The reference's tree as numpy arrays (bf16 kept, or fp32)."""
-    if fp32:
-        return jax.tree.map(lambda a: np.asarray(a, np.float32),
-                            jparams(seed))
-    return jax.tree.map(np.asarray, jparams(seed))
+    return family_arrays(ARCH, seed, fp32)
 
 
 @pytest.fixture(scope="module")
@@ -472,103 +475,18 @@ def test_mha_runs_where_the_reference_plain_path_runs(monkeypatch, case,
 
 
 def _assert_streams(got, want, gaps, context=()) -> int:
-    """Each stream has the reference's length and equals it up to the
-    first step whose reference gap is below :data:`MIN_GAP`; returns the
-    number of tokens compared."""
-    compared = 0
-    for rid in want:
-        assert len(got[rid]) == len(want[rid]), (context, rid)
-        n = next((i for i, g in enumerate(gaps[rid]) if g < MIN_GAP),
-                 len(want[rid]))
-        assert list(got[rid][:n]) == want[rid][:n], (context, rid, n)
-        compared += n
-    return compared
-
-
-@functools.lru_cache(maxsize=None)
-def _jax_batcher_streams(seed, quantized, schedule, k, paged, trace_name):
-    """The reference batcher's streams on a trace, one wave after another,
-    with its plan and sharded (calibrated) parameters."""
-    from repro.serve import Bucket as JaxBucket
-    from repro.serve import BucketPolicy as JaxBucketPolicy
-    from repro.serve import DecodeRequest as JaxDecodeRequest
-    from repro.serve import ServeBatcher as JaxServeBatcher
-
-    mesh = make_debug_mesh(1, 1)
-    tokens = {}
-    with mesh:
-        b = JaxServeBatcher(
-            jcfg(), mesh, quantized=quantized,
-            policy=JaxBucketPolicy([JaxBucket(BUCKET.max_len,
-                                              BUCKET.batch)]),
-            schedule=schedule, steps_per_dispatch=k,
-            paged=PAGED if paged else None).load_params(jparams(seed))
-        for wave in waves(TRACES[trace_name]):
-            for rid, p, n in wave:
-                b.submit(JaxDecodeRequest(rid, p, max_new_tokens=n))
-            tokens.update({r: v.tokens for r, v in b.run().items()})
-    return tokens, b.plan, b.params
-
-
-@functools.lru_cache(maxsize=None)
-def _jax_step(cfg):
-    """The reference's jitted ``decode_step`` for a (calibrated) config."""
-    return jax.jit(jax_build_model(cfg).decode_step)
-
-
-TRACES = {"parity": PARITY_TRACE, "shared": SHARED_TRACE}
+    return assert_gap_streams(got, want, gaps, MIN_GAP, context)
 
 
 def jax_streams(seed, quantized, schedule, k, paged, trace_name,
                 skipped=0):
-    """The reference batcher's streams on a trace, and the per-request
-    gaps and argmax tokens of a JAX greedy loop from position 0
-    teacher-forced along them. ``skipped`` N > 0 reproduces the prefix
-    cache on waves after the first: their SSM and conv state is zeroed
-    after N prompt tokens, as a follower that maps N tokens of published
-    pages starts from a fresh recurrent state (the KV rows of those
-    tokens are the same either way)."""
-    tokens, plan, sparams = _jax_batcher_streams(seed, quantized, schedule,
-                                                 k, paged, trace_name)
-    step = _jax_step(plan.cfg)
-    gaps, loop = {}, {}
-    with plan.activate():
-        for w, wave in enumerate(waves(TRACES[trace_name])):
-            for rid, prompt, n in wave:
-                state = plan.fresh_decode_state(1, BUCKET.max_len)
-                g, top = [], []
-                for i in range(len(prompt) + n - 1):
-                    if w and skipped and i == skipped:
-                        state = dict(state, ssm=jnp.zeros_like(state["ssm"]),
-                                     conv=jnp.zeros_like(state["conv"]))
-                    t_in = (prompt[i] if i < len(prompt)
-                            else tokens[rid][i - len(prompt)])
-                    logits, state = step(sparams, state,
-                                         jnp.asarray([t_in], jnp.int32),
-                                         jnp.int32(i))
-                    if i >= len(prompt) - 1:
-                        lg = np.asarray(logits[0], np.float64)
-                        top.append(int(np.argmax(lg)))
-                        lg = np.sort(lg)
-                        g.append(float(lg[-1] - lg[-2]))
-                gaps[rid], loop[rid] = g, top
-    return tokens, gaps, loop
+    return family_reference(ARCH, seed, quantized, schedule, k, paged,
+                            trace_name, skipped=skipped)
 
 
 def _port_streams(seed, quantized, schedule, k, paged, trace):
-    plan = build_plan(ARCH, None, debug=True, quantized=quantized,
-                      device="cpu")
-    kw = dict(steps_per_dispatch=k, paged=PAGED if paged else None)
-    if schedule == "fifo":
-        kw = {}
-    b = plan.make_batcher(policy=BucketPolicy([BUCKET]), schedule=schedule,
-                          **kw).load_params(arrays(seed))
-    out = {}
-    for wave in waves(trace):
-        for rid, p, n in wave:
-            b.submit(DecodeRequest(rid, p, max_new_tokens=n))
-        out.update({r: v.tokens for r, v in b.run().items()})
-    return b, out
+    return family_port_streams(ARCH, seed, quantized, schedule, k, paged,
+                               trace)
 
 
 @pytest.mark.parametrize("schedule,k,paged", [

@@ -314,14 +314,26 @@ def test_fifo_batcher_matches_reference(jcfg, jparams, arrays, quantized):
 # ---------------------------------------------------------------------------
 
 
-def test_only_the_dense_yi_6b_is_ported(tcfg):
+@pytest.mark.parametrize("arch,family,item", [
+    ("llama-3.2-vision-90b", "vlm", "ROADMAP Queue 1 item 2"),
+    ("seamless-m4t-large-v2", "encdec", "ROADMAP Queue 1 item 1"),
+], ids=["vlm", "encdec"])
+def test_only_the_dense_yi_6b_is_ported(tcfg, arch, family, item):
+    """Named when yi-6b was the one config of the port; it now holds the
+    ids and families the port does not carry yet: each raises with the
+    roadmap item that ports it, while every ported id has its config."""
+    from repro_torch.configs import ARCH_IDS, PENDING_FAMILIES, PORTED_IDS
+
     assert get_config("yi-6b").d_model == 4096
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        get_config("qwen1.5-4b")
+    assert sorted(PORTED_IDS + list(PENDING_FAMILIES)) == sorted(ARCH_IDS)
+    for name in PORTED_IDS:
+        assert get_config(name).family in ("dense", "moe", "ssm", "hybrid")
+    with pytest.raises(NotImplementedError, match=item):
+        get_config(arch)
     with pytest.raises(KeyError):
         get_config("no-such-arch")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        build_model(tcfg.with_(family="moe"), device="cpu")
+    with pytest.raises(NotImplementedError, match=item):
+        build_model(tcfg.with_(family=family), device="cpu")
 
 
 def test_serving_features_not_ported_raise():
@@ -441,3 +453,155 @@ def test_lm_entry_points_default_to_the_card(monkeypatch, tcfg, arrays):
         build_model(tcfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         decoder_lm_from_arrays(tcfg, arrays)
+
+
+# ---------------------------------------------------------------------------
+# the other dense configs: qwen1.5-4b (QKV bias), mistral, qwen1.5-110b
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["qwen1_5_4b", "mistral_large_123b",
+                                  "qwen1_5_110b"])
+def test_other_dense_configs_equal_reference(arch):
+    """The full and the reduced config equal the reference's field by
+    field (mistral and qwen1.5-110b do not fit one card: reduced only)."""
+    from repro.configs import get_config as jax_get_config
+
+    for got, want in ((get_config(arch), jax_get_config(arch)),
+                      (reduced_config(arch), jax_reduced_config(arch))):
+        for field in type(want).__dataclass_fields__:
+            assert getattr(got, field) == getattr(want, field), field
+
+
+def _biased_qwen(seed):
+    """The reduced qwen1.5-4b's reference tree in fp32 with random QKV
+    biases (the reference initialises them to zero, which would hold
+    nothing)."""
+    from _torch_serve_ref import family_params
+
+    tree = jax.tree.map(lambda a: np.asarray(a, np.float32),
+                        family_params("qwen1_5_4b", seed))
+    rng = np.random.default_rng(seed + 17)
+    for name in ("wq", "wk", "wv"):
+        b = tree["blocks"]["attn"][name]["b"]
+        tree["blocks"]["attn"][name]["b"] = (
+            rng.standard_normal(b.shape).astype(np.float32) * 0.5)
+    return tree
+
+
+@pytest.mark.parametrize("on", [False, True], ids=["plain", "flash"])
+def test_qwen_logits_with_qkv_bias(flash, on, test_seed):
+    """Reduced qwen1.5-4b (4 layers, 4 heads, kv 2: the reduced config
+    caps kv at 2, so unlike the full config the heads repeat) with random
+    QKV biases, fp32: prefill logits with flash on and off, and 6 decode
+    steps, within 1e-4 of the reference."""
+    flash(on)
+    cfg = reduced_config("qwen1_5_4b")
+    assert cfg.qkv_bias and get_config("qwen1_5_4b").n_kv == 20
+    tree = _biased_qwen(test_seed)
+    jm = jax_build_model(jax_reduced_config("qwen1_5_4b"))
+    jtree = jax.tree.map(jnp.asarray, tree)
+    model = decoder_lm_from_arrays(cfg, tree, "cpu")
+    assert model.blocks[0].attn["wk"]["b"].abs().max() > 0.1
+    toks = np.random.default_rng(8).integers(0, 256, (2, 40)).astype(np.int32)
+    want = np.asarray(jm.forward(jtree, {"tokens": jnp.asarray(toks)}))
+    got = model({"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-4)
+    jstate = jax.tree.map(lambda a: a.astype(jnp.float32), init_params(
+        jax.random.PRNGKey(0), jm.decode_state_specs(2, 16)))
+    tstate = {k: v.float() for k, v in model.decode_state(2, 16).items()}
+    for i in range(6):
+        jl, jstate = jm.decode_step(jtree, jstate, jnp.asarray(toks[:, i]),
+                                    jnp.int32(i))
+        tl, _ = model.decode_step(tstate, torch.from_numpy(toks[:, i]), i)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4,
+                                   rtol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["fifo", "continuous-k4", "paged-k4"])
+@pytest.mark.parametrize("quantized", [False, True],
+                         ids=["float", "quantized"])
+def test_qwen_streams_match_reference(quantized, mode, test_seed,
+                                      monkeypatch):
+    """The parity trace through the reduced qwen1.5-4b in the port and the
+    reference, float and quantized (the head and 4 down-projections per
+    step through qmatmul): the reference's own streams per mode up to the
+    first step whose gap is below 0.1 (tests/test_torch_moe.py)."""
+    import repro_torch.layers.linear as tlinear
+    from _torch_serve_ref import (
+        PARITY_TRACE,
+        assert_gap_streams,
+        family_port_streams,
+        family_reference,
+    )
+
+    calls = []
+    real = tlinear.qlinear
+    monkeypatch.setattr(tlinear, "qlinear", lambda *a, **k: (
+        calls.append(1), real(*a, **k))[1])
+    schedule, k, paged = {"fifo": ("fifo", 1, False),
+                          "continuous-k4": ("continuous", 4, False),
+                          "paged-k4": ("continuous", 4, True)}[mode]
+    want, gaps, _ = family_reference("qwen1_5_4b", test_seed, quantized,
+                                     schedule, k, paged, "parity")
+    b, got = family_port_streams("qwen1_5_4b", test_seed, quantized,
+                                 schedule, k, paged, PARITY_TRACE)
+    assert assert_gap_streams(got, want, gaps, 0.1, mode) >= 15
+    assert b.plan.ir.quant.get("mlp", False) == quantized
+    if quantized:
+        steps = (b.scheduler.stats()["micro_runs"] * k
+                 if schedule == "continuous" else None)
+        assert calls and (steps is None or len(calls) == 5 * steps)
+    else:
+        assert not calls
+
+
+# ---------------------------------------------------------------------------
+# init_params: the reference's initialiser of every leaf, each family
+# ---------------------------------------------------------------------------
+
+
+def _spec_leaves(tree, prefix=""):
+    from repro.dist.sharding import ParamSpec
+
+    for key, val in tree.items():
+        if isinstance(val, ParamSpec):
+            yield prefix + key, val
+        else:
+            yield from _spec_leaves(val, prefix + key + ".")
+
+
+@pytest.mark.parametrize("arch", ["yi_6b", "qwen1_5_4b", "phi3_5_moe_42b",
+                                  "kimi_k2_1t", "rwkv6_7b", "zamba2_2_7b"])
+def test_init_params_kinds_match_reference(arch):
+    """Every parameter's initialiser kind and scale equal the reference's
+    ``ParamSpec`` (zeros, ones, small 0.02, embed d_model**-0.5, normal at
+    the stacked spec's fan-in ``shape[-2] ** -0.5``, so an expert weight
+    [E, d, f] draws at d**-0.5, not E**-0.5); ``init_params`` fills the
+    constant leaves exactly and draws the others at that std (within 10%
+    where a leaf has at least 4096 entries)."""
+    from repro.dist.sharding import _fan_in
+    from repro_torch.models.base import init_kind
+
+    jcfg = jax_reduced_config(arch)
+    specs = dict(_spec_leaves(jax_build_model(jcfg).param_specs()))
+    model = build_model(reduced_config(arch), device="cpu").init_params(0)
+    seen = set()
+    for name, p in model.named_parameters():
+        ref = ".".join(part for part in name.split(".")
+                       if not part.isdigit())
+        spec = specs[ref]
+        seen.add(ref)
+        want = {"zeros": 0.0, "ones": 1.0, "small": 0.02,
+                "embed": spec.shape[-1] ** -0.5,
+                "normal": _fan_in(spec.shape) ** -0.5}[spec.init]
+        if spec.scale is not None:
+            want = spec.scale
+        kind, scale = init_kind(name, tuple(p.shape))
+        assert kind == spec.init, name
+        assert abs(scale - want) < 1e-12, (name, scale, want)
+        if kind in ("zeros", "ones"):
+            assert torch.equal(p, torch.full_like(p, scale)), name
+        elif p.numel() >= 4096:
+            assert abs(p.float().std().item() / scale - 1) < 0.1, name
+    assert seen == set(specs)
