@@ -151,6 +151,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
    32x4096x32064, phi3.5-moe's head at a speculative verify) with split-K
    on and off, and phase 5 holds flash at qwen's path shape [2*20, 2048,
    128] bf16 causal, all timed in phase 8.
+15-16. The cross-attention families, each run as phases 12-14 run theirs
+   (random bf16 weights from seed 0, each model freed before the next;
+   quantized continuous serving, bucket 8 x 512, k = 4, phase 9's first
+   wave once paged and once dense, counted from zero, every stream held by
+   phase 9's gap rule to the plain loop replayed at its positions in
+   batches of 8, pages in use == scratch + prefix entries after the paged
+   wave; a prefill line and a micro-run line with the profiler split). In
+   both, serving leaves the cross caches at zero and the decode head is
+   float, as in the reference.
+   15. seamless-m4t-large-v2 at its full size (24 encoder and 24 decoder
+       layers, 1,632,800,768 parameters): prefill of frames [2, 2048,
+       1024] bf16 (standard normal, numpy seed 0, standing in for the
+       stubbed audio frontend) and tokens [2, 512]: 48 flash launches
+       (24 non-causal in the encoder, 24 causal in the decoder), each held
+       to the plain attention on its own inputs, and ``PREFILL_TOL`` at
+       full depth; qmatmul 0 x 4 per micro-run (its GELU MLP has no
+       quantized route).
+   16. llama-3.2-vision-90b at full width, cut to 6 of its 20 superblocks
+       (30 of 100 layers, 27.8 B parameters): every cross gate drawn from
+       a seed, uniform in [0.5, 1] (the reference starts them at zero);
+       prefill of tokens [2, 2048] and vision [2, 4096, 8192] bf16: 24
+       flash launches, each held on its own inputs, ``PREFILL_TOL`` at the
+       cut depth, the logits with the gates as set against the gates at 0
+       (how far the cross-attention moves them), and 64 decode steps over
+       ``init_cross_cache(vision)`` held to the forward's first 64
+       positions by ``PREFILL_TOL``; qmatmul 24 x 4 per micro-run (the 4
+       self blocks' down-projections in each of 6 superblocks).
+   Phase 2 also holds qmatmul at 8x28672x8192 a16w8 (the vlm
+   down-projection) with split-K on and off, and phase 5 holds flash at
+   [2*16, 2048, 64] bf16 non-causal, [2*16, 512, 64] causal and [2*64,
+   2048, 128] causal, all timed in phase 8 beside their bounds and SDPA.
 
 The last two lines are the ``kernels`` JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -219,8 +250,12 @@ FAMILY_QMATMUL = [(8, 2560, 151936, "int8", "int8", "int16"),
                   (8, 4096, 32064, "int8", "int8", "int16"),
                   (8, 4096, 65536, "int8", "int8", "int16"),
                   (32, 4096, 32064, "int8", "int8", "int16")]
+# phase 16's quantized decode at batch 8: llama-3.2-vision's a16w8 SwiGLU
+# down-projection of a self block (its head and cross blocks stay float,
+# and seamless runs no qmatmul at all, as in the reference)
+VLM_QMATMUL = [(8, 28672, 8192, "int16", "int8", "int16")]
 LM_SHAPES = (LM_QMATMUL + LM_QMATMUL_M8 + LM_QMATMUL_M32 + HYBRID_QMATMUL
-             + FAMILY_QMATMUL)
+             + FAMILY_QMATMUL + VLM_QMATMUL)
 
 # decode-sized M for the 16-row tile and split-K: (M, K, N)
 SMALL_M_SHAPES = [(M, K, 300) for M in (1, 4, 16, 17) for K in (70, 11008)]
@@ -276,6 +311,30 @@ MOE_ARCH = "phi3.5-moe-42b-a6.6b"
 MOE_LAYERS = 24
 FLASH_PATH_QWEN = (PREFILL_BATCH * 20, PREFILL_SEQ, PREFILL_SEQ, 128, "bf16",
                    True, 0, False)
+# phases 15-16: the cross-attention families. seamless-m4t-large-v2 at its
+# full size; its prefill runs 2048 frames through the encoder (non-causal
+# flash, head dim 64) and max(2048 // 4, 128) = 512 tokens through the
+# decoder (causal flash); its cross-attention (512 queries over 2048 frames)
+# runs the plain path, as in the reference. llama-3.2-vision-90b at full
+# width, cut in depth to 6 of its 20 superblocks (30 of 100 layers, 27.8 B
+# parameters, 55.5 GB in bf16: the whole model's 175 GB does not fit one
+# 80 GB card); its self-attention runs causal flash at head dim 128 and its
+# cross-attention (2048 queries over 4096 patches) the plain path
+SEAMLESS_ARCH, VLM_ARCH = "seamless-m4t-large-v2", "llama-3.2-vision-90b"
+VLM_SUPERBLOCKS = 6
+SEAMLESS_DEC_SEQ = max(PREFILL_SEQ // 4, 128)
+FLASH_PATH_SEAMLESS_ENC = (PREFILL_BATCH * 16, PREFILL_SEQ, PREFILL_SEQ, 64,
+                           "bf16", False, 0, False)
+FLASH_PATH_SEAMLESS_DEC = (PREFILL_BATCH * 16, SEAMLESS_DEC_SEQ,
+                           SEAMLESS_DEC_SEQ, 64, "bf16", True, 0, False)
+FLASH_PATH_VLM = (PREFILL_BATCH * 64, PREFILL_SEQ, PREFILL_SEQ, 128, "bf16",
+                  True, 0, False)
+# the vision LM's cross-attention gates start at zero (a fresh cross block
+# adds nothing from its attention); phase 16 draws them from this seed,
+# uniform in [0.5, 1]
+VLM_GATE_SEED = 16
+FLASH_PATHS_CROSS = [FLASH_PATH_SEAMLESS_ENC, FLASH_PATH_SEAMLESS_DEC,
+                     FLASH_PATH_VLM]
 # RWKV's prefill runs its recurrence token by token on the host (the
 # reference has no kernel for it): its latency is the median of 2 calls,
 # and its device split is profiled on the first 256 tokens (the profiler's
@@ -588,6 +647,12 @@ def prefill_agreement(flash_logits, plain_logits):
                 else 1.0)
 
 
+def within_prefill_tol(agree):
+    return (agree["mean_abs"] <= PREFILL_TOL["mean_abs"]
+            and agree["max_abs"] <= PREFILL_TOL["max_abs"]
+            and agree["argmax_agree"] >= PREFILL_TOL["argmax_agree"])
+
+
 def serve_requests(vocab, wave):
     rng = np.random.default_rng(100)     # the same prompts every wave
     return [dict(request_id=f"w{wave}r{i}",
@@ -651,12 +716,29 @@ def check_unbuilt_head_dim(dev, flash_ops, attention, hd=96):
 
 def attention_sites(cfg):
     """Self-attention calls per forward: every layer of the decoder LMs,
-    one per group (the shared block) of the hybrid, none in RWKV."""
+    one per group (the shared block) of the hybrid, none in RWKV, every
+    encoder and decoder layer of the encoder-decoder, every self block of
+    the vision LM (its cross-attention never runs flash here: Sq != Sk)."""
     if cfg.family == "hybrid":
         return cfg.n_layers // cfg.attn_every
     if cfg.family == "ssm":
         return 0
+    if cfg.family == "encdec":
+        return (cfg.n_enc_layers or cfg.n_layers) + cfg.n_layers
+    if cfg.family == "vlm":
+        n_super = cfg.n_layers // cfg.cross_attn_every
+        return n_super * (cfg.cross_attn_every - 1)
     return cfg.n_layers
+
+
+def qmatmul_per_step(cfg):
+    """qmatmul launches per quantized decode step: the int8 LM head (the
+    encoder-decoder's and the vision LM's heads stay float, as in the
+    reference) and each a16w8 down-projection call where the MLP is
+    quantized (every self block; the hybrid's shared block at each call
+    site)."""
+    head = 0 if cfg.family in ("encdec", "vlm") else 1
+    return head + (attention_sites(cfg) if cfg.quantized_mlp else 0)
 
 
 def describe_model(cfg, model, arch):
@@ -676,6 +758,13 @@ def describe_model(cfg, model, arch):
     elif cfg.family == "ssm":
         shape = (f", {cfg.d_model // cfg.ssm_head_dim} wkv heads of "
                  f"{cfg.ssm_head_dim}")
+    elif cfg.family == "encdec":
+        shape = (f" in the decoder and {cfg.n_enc_layers} in the encoder, "
+                 f"LayerNorm, GELU MLP with biases")
+    elif cfg.family == "vlm":
+        shape = (f" in {cfg.n_layers // cfg.cross_attn_every} superblocks of "
+                 f"{cfg.cross_attn_every - 1} self blocks and one gated "
+                 f"cross block, {cfg.n_image_tokens} image tokens")
     else:
         shape = ", QKV bias" if cfg.qkv_bias else ""
     cut = (f" (cut in depth from {full.n_layers}: the whole model does not "
@@ -736,9 +825,12 @@ def run_prefill(dev, flash_ops, attention, arch="yi-6b", overrides=None,
     torch.cuda.synchronize()
     print(describe_model(cfg, model, arch)
           + f", init {time.perf_counter() - t0:.1f} s")
+    if cfg.family == "vlm":
+        gates = set_gates(model)
+        print(f"{cfg.name}: cross-attention gates set from seed "
+              f"{VLM_GATE_SEED}, uniform in [0.5, 1] (bf16): {gates}")
     prefill = plan.executable("prefill")
-    batch = {"tokens": torch.from_numpy(
-        lm_tokens(cfg.vocab, (PREFILL_BATCH, PREFILL_SEQ), 0)).to(dev)}
+    batch = prefill_batch(cfg, shape, dev)
 
     sites = attention_sites(cfg)
     site_errs = []
@@ -756,13 +848,14 @@ def run_prefill(dev, flash_ops, attention, arch="yi-6b", overrides=None,
     if launches != sites or len(site_errs) != sites:
         raise AssertionError(f"flash launched {launches} times in one "
                              f"{cfg.name} forward, expected {sites}")
-    if logits.shape != (PREFILL_BATCH, PREFILL_SEQ, cfg.vocab) \
+    if logits.shape != (*batch["tokens"].shape, cfg.vocab) \
             or not torch.isfinite(logits).all():
         raise AssertionError(f"bad prefill logits {tuple(logits.shape)}")
     held = (f"each site's flash output vs the plain attention on its own "
             f"inputs: max |diff| {max(site_errs):.6f} (tolerance "
             f"{FLASH_TOL['bf16']})" if sites else "no attention")
-    print(f"prefill {cfg.name} [{PREFILL_BATCH}, {PREFILL_SEQ}]: {launches} "
+    inputs = ", ".join(f"{name} {list(t.shape)}" for name, t in batch.items())
+    print(f"prefill {cfg.name} ({inputs}): {launches} "
           f"flash launches == attention sites x 1 call; logits finite; "
           f"{held}; first call {first_s:.1f} s, peak card memory "
           f"{peak_gb:.2f} GB")
@@ -800,10 +893,11 @@ def run_prefill(dev, flash_ops, attention, arch="yi-6b", overrides=None,
     else:
         agree = recurrent_agreement(model, batch, attention)
     del routes
-    if not (agree["mean_abs"] <= PREFILL_TOL["mean_abs"]
-            and agree["max_abs"] <= PREFILL_TOL["max_abs"]
-            and agree["argmax_agree"] >= PREFILL_TOL["argmax_agree"]):
+    if not within_prefill_tol(agree):
         raise AssertionError(f"{cfg.name} prefill disagrees: {agree}")
+    if cfg.family == "vlm":
+        vlm_cross_checks(model, batch, logits)
+    del logits
 
     lat = []
     for _ in range(reps[0]):
@@ -831,6 +925,81 @@ def run_prefill(dev, flash_ops, attention, arch="yi-6b", overrides=None,
     if cfg.family == "moe":
         out["drops"] = drops
     return model, out
+
+
+def prefill_batch(cfg, shape, dev):
+    """The family's prefill inputs at ``shape``: tokens from numpy seed 0,
+    and the stubbed frontends' frame or patch embeddings, standard normal
+    from numpy seed 0, in bf16."""
+    from repro_torch.models.base import prefill_inputs
+
+    rng = np.random.default_rng(0)
+    batch = {}
+    for name, (dims, dtype) in prefill_inputs(cfg, shape).items():
+        if name == "tokens":
+            batch[name] = torch.from_numpy(lm_tokens(cfg.vocab, dims, 0))
+        else:
+            batch[name] = torch.from_numpy(
+                rng.standard_normal(dims, dtype=np.float32)).to(dtype)
+    return {name: t.to(dev) for name, t in batch.items()}
+
+
+def set_gates(model):
+    """Draw every cross block's gate from ``VLM_GATE_SEED``, uniform in
+    [0.5, 1] (the reference starts them at zero, where the cross-attention
+    adds nothing); returns them as stored (bf16)."""
+    vals = np.random.default_rng(VLM_GATE_SEED).uniform(
+        0.5, 1.0, len(model.cross_blocks))
+    with torch.no_grad():
+        for blk, g in zip(model.cross_blocks, vals):
+            blk.gate.fill_(float(g))
+    return [round(float(blk.gate.float()), 4) for blk in model.cross_blocks]
+
+
+def vlm_cross_checks(model, batch, logits, n=RECURRENT_CHECK):
+    """Phase 16's two checks of the cross path on the prefill's inputs.
+
+    How far the cross-attention moves the logits: the forward with every
+    gate at 0 against ``logits`` (gates as set); it must move them. And
+    decode over a filled cross cache: ``init_cross_cache`` of the patch
+    embeddings, then ``n`` decode steps over the first ``n`` tokens, held
+    to ``logits`` at those positions by PREFILL_TOL (the cross-attention
+    does not mix positions, so decode sees what the forward saw)."""
+    gates = [blk.gate.clone() for blk in model.cross_blocks]
+    with torch.no_grad():
+        for blk in model.cross_blocks:
+            blk.gate.zero_()
+    try:
+        zero = model(batch)
+    finally:
+        with torch.no_grad():
+            for blk, g in zip(model.cross_blocks, gates):
+                blk.gate.copy_(g)
+    moved = prefill_agreement(logits, zero)
+    del zero
+    if not moved["mean_abs"] > 0:
+        raise AssertionError("the cross-attention does not move the logits")
+    state = model.decode_state(PREFILL_BATCH, n)
+    state["cross_k"], state["cross_v"] = model.init_cross_cache(
+        batch["vision"])
+    with torch.inference_mode():
+        steps = torch.stack([model.decode_step(state, batch["tokens"][:, i],
+                                               i)[0] for i in range(n)],
+                            dim=1)
+    agree = prefill_agreement(steps, logits[:, :n])
+    print(f"prefill {model.cfg.name}: gates as set vs gates at 0: mean "
+          f"|diff| {moved['mean_abs']:.6f}, max |diff| "
+          f"{moved['max_abs']:.6f}, argmax agreement "
+          f"{moved['argmax_agree']:.6f} at {moved['robust_positions']} "
+          f"positions with top-2 gap > 0.1 (how far the cross-attention "
+          f"moves the logits); {n} decode steps over init_cross_cache vs "
+          f"the forward's first {n} positions: mean |diff| "
+          f"{agree['mean_abs']:.6f}, max |diff| {agree['max_abs']:.6f}, "
+          f"argmax agreement {agree['argmax_agree']:.6f} at "
+          f"{agree['robust_positions']} positions (tolerance {PREFILL_TOL})")
+    if not within_prefill_tol(agree):
+        raise AssertionError(f"decode over the cross cache disagrees with "
+                             f"the forward: {agree}")
 
 
 def recurrent_agreement(model, batch, attention, n=RECURRENT_CHECK):
@@ -925,14 +1094,22 @@ def held_sites(attention, errs):
     """Within the block, every flash call of a forward is also run through
     its plain version on the same inputs, and the largest difference per
     call is appended to ``errs``; a call outside ``FLASH_TOL`` raises. The
-    plain version launches no kernel, so the launch count is the path's."""
+    plain version launches no kernel, so the launch count is the path's.
+
+    The plain version's result is taken in fp32, before it would round to
+    bf16: the kernel's bf16 output is held to the exact attention. A model
+    whose attention outputs reach 4 (seamless's encoder does) has a bf16
+    step of 0.031 there, so two roundings of one fp32 value, the kernel's
+    and the plain version's, can differ by more than the 2e-2 tolerance
+    while both are within half a step of it."""
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     real = attention.flash_attention
 
     def checked(q, k, v, *, causal=True, q_start=0, **kw):
         o = real(q, k, v, causal=causal, q_start=q_start, **kw)
-        want = attention_ref(q, k, v, causal=causal, q_start=q_start)
+        want = attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                             q_start=q_start)
         errs.append(float((o.float() - want.float()).abs().max()))
         torch.testing.assert_close(o.float(), want.float(),
                                    **FLASH_TOL["bf16"])
@@ -1303,11 +1480,12 @@ def run_continuous(dev, model, plan, qmatmul_ops, flash_ops):
     return out
 
 
-def time_micro_run(dev, plan, model, batcher):
+def time_micro_run(dev, plan, model, batcher, qmatmul=True):
     """One micro-run of the batcher's step in steady decode, its state
     resident: every lane active at positions 100-103 (a speculative step
     accepts nothing here; its work per call is the same). Host-clock
-    median of 5 calls and the device split of 2."""
+    median of 5 calls and the device split of 2, which must show qmatmul
+    time where the step launches it (``qmatmul``)."""
     k, B, L = CONT_K, CONT_BATCH, CONT_MAX_LEN
     lanes = [torch.full((k, B), -1, dtype=torch.int32, device=dev),
              torch.ones(B, dtype=torch.int32, device=dev), 100,
@@ -1339,9 +1517,9 @@ def time_micro_run(dev, plan, model, batcher):
         lat.append((time.perf_counter() - t) * 1e3)
     split = profile_split(micro_run, calls=2)
     batcher.pool.release(B, L, state)
-    if split["qmatmul_ms"] <= 0:
-        raise AssertionError(f"profiler split found no qmatmul time in a "
-                             f"micro-run: {split}")
+    if (split["qmatmul_ms"] > 0) != qmatmul:
+        raise AssertionError(f"profiler split of a micro-run disagrees with "
+                             f"its qmatmul launches ({qmatmul}): {split}")
     return dict(median_ms=statistics.median(lat), latencies_ms=lat,
                 split=split)
 
@@ -1511,8 +1689,7 @@ def run_family(dev, flash_ops, qmatmul_ops, attention, arch, overrides=None,
     plan.load_params(model)           # calibrates any a16w8 MLP shifts
     torch.cuda.synchronize()
     cfg = plan.cfg
-    # the head, and each down-projection call where the MLP is quantized
-    per_step = 1 + (attention_sites(cfg) if cfg.quantized_mlp else 0)
+    per_step = qmatmul_per_step(cfg)
     reqs = (unshared_requests(cfg.vocab) if recurrent
             else continuous_requests(cfg.vocab, 0))
     print(f"{cfg.name} serve plan: quantized MLP {plan.ir.quant['mlp']}, "
@@ -1541,7 +1718,8 @@ def run_family(dev, flash_ops, qmatmul_ops, attention, arch, overrides=None,
         out["launches"][label] = row["launches"]
     if recurrent and out["rows"]["paged"]["prefix_hits"]:
         raise AssertionError(f"a {cfg.name} prompt mapped a prefix page")
-    out["micro_run"] = time_micro_run(dev, plan, model, batchers["paged"])
+    out["micro_run"] = time_micro_run(dev, plan, model, batchers["paged"],
+                                      qmatmul=per_step > 0)
     return out
 
 
@@ -1639,7 +1817,8 @@ def time_flash(flash_ops, attention_ref, dev, case):
         q4, k4, v4, is_causal=causal), iters=20)
     bound_ms, bound_by, ops, nbytes = flash_bound(BH, Sq, Sk, hd, dtype,
                                                   causal)
-    print(f"flash [{BH}, {Sq}, {hd}] {dtype} causal: kernel {ms:.6f} ms, "
+    mode = "causal" if causal else "non-causal"
+    print(f"flash [{BH}, {Sq}, {hd}] {dtype} {mode}: kernel {ms:.6f} ms, "
           f"bound {bound_ms:.6f} ms ({bound_by}), plain {plain:.6f} ms (not a "
           f"yardstick), SDPA {sdpa:.6f} ms (yardstick, never called by the "
           f"port)")
@@ -1662,6 +1841,7 @@ def main() -> int:
     from repro_torch.layers import attention
 
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
     # phase 1: the card, then the build
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1747,7 +1927,7 @@ def main() -> int:
     # phase 5: flash kernel vs plain version
     fchk = FlashChecker(flash_ops, attention_ref)
     for case in FLASH_CASES + [FLASH_PATH, FLASH_PATH_HYBRID,
-                               FLASH_PATH_QWEN]:
+                               FLASH_PATH_QWEN] + FLASH_PATHS_CROSS:
         err = fchk.compare(*case, dev)
         print(f"flash {case[:7]}{' x100' if case[7] else ''}: kernel vs "
               f"plain max |diff| {err:.3g} (tolerance {FLASH_TOL[case[4]]})")
@@ -1780,6 +1960,8 @@ def main() -> int:
     fl = time_flash(flash_ops, attention_ref, dev, FLASH_PATH)
     fl_h = time_flash(flash_ops, attention_ref, dev, FLASH_PATH_HYBRID)
     fl_q = time_flash(flash_ops, attention_ref, dev, FLASH_PATH_QWEN)
+    fl_x = [time_flash(flash_ops, attention_ref, dev, case)
+            for case in FLASH_PATHS_CROSS]
 
     # phase 9: continuous serving at full width, each run counted from zero
     cont = run_continuous(dev, model, srv["plan"], ops, flash_ops)
@@ -1798,8 +1980,10 @@ def main() -> int:
     spec_launches = spec["launches"]["paged"] + spec["launches"]["dense"]
     spec_paged = spec["launches"]["paged"]
 
-    # phases 11-14: the hybrid, the other dense configs, the MoE family and
-    # RWKV at full width, each model freed before the next is loaded
+    print(f"phases 1-10 done at {time.perf_counter() - t_start:.1f} s")
+    # phases 11-16: the hybrid, the other dense configs, the MoE family,
+    # RWKV, the encoder-decoder and the vision LM at full width, each model
+    # freed before the next is loaded
     yi_layers = model.cfg.n_layers
     del model, srv["plan"], cont, spec
     fams = []
@@ -1809,11 +1993,16 @@ def main() -> int:
             (13, MOE_ARCH, dict(overrides={"n_layers": MOE_LAYERS})),
             (14, RWKV_ARCH, dict(recurrent=True,
                                  prefill_reps=RWKV_PREFILL_REPS,
-                                 profile_seq=RWKV_PROFILE_SEQ))):
+                                 profile_seq=RWKV_PROFILE_SEQ)),
+            (15, SEAMLESS_ARCH, {}),
+            (16, VLM_ARCH, dict(overrides={
+                "n_layers": VLM_SUPERBLOCKS
+                * get_config(VLM_ARCH).cross_attn_every}))):
         free_card()
         fam = run_family(dev, flash_ops, ops, attention, arch, **kw)
         fp = fam["prefill"]
-        cut = (f" ({MOE_LAYERS} layers)" if "overrides" in kw else "")
+        cut = (f" ({kw['overrides']['n_layers']} layers)"
+               if "overrides" in kw else "")
         print(prefill_line(arch + cut, fp))
         if (fp["split"]["flash_ms"] > 0) != (fp["launches"] > 0):
             raise AssertionError(f"profiler split of the {arch} prefill "
@@ -1824,6 +2013,7 @@ def main() -> int:
                              f"paged, batch {CONT_BATCH}, k={CONT_K}",
                              fam["micro_run"]))
         fams.append((phase, arch + cut, fam))
+        print(f"phase {phase} done at {time.perf_counter() - t_start:.1f} s")
     fam_launches = sum(f["launches"]["paged"] + f["launches"]["dense"]
                        for _, _, f in fams)
     fam_flash = sum(f["prefill"]["launches"] for _, _, f in fams)
@@ -1878,11 +2068,15 @@ def main() -> int:
         "ms": fl["ms"], "plain_ms": fl["plain_ms"],
         "bound_ms": fl["bound_ms"], "bound_by": fl["bound_by"],
         "library_ms": fl["library_ms"],
-        "shapes": [dict(shape=list(case[:4]), dtype=case[4], **t)
+        "shapes": [dict(shape=list(case[:4]), dtype=case[4], causal=case[5],
+                        **t)
                    for case, t in ((FLASH_PATH, fl),
                                    (FLASH_PATH_HYBRID, fl_h),
-                                   (FLASH_PATH_QWEN, fl_q))],
+                                   (FLASH_PATH_QWEN, fl_q),
+                                   *zip(FLASH_PATHS_CROSS, fl_x))],
     }]}
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

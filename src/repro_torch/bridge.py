@@ -6,14 +6,15 @@ shifts, ...) into a port :class:`EmittedModel` on a given device, without
 running the passes. ``decoder_lm_from_arrays`` turns the reference's
 decoder-LM parameter tree (dense or MoE), as numpy arrays, into a port
 ``DecoderLM``. The port's execution can then be held against the
-reference's on identical weights; ``rwkv_from_arrays`` and
-``hybrid_from_arrays`` do the same for the RWKV and hybrid trees, and
+reference's on identical weights; ``rwkv_from_arrays``,
+``hybrid_from_arrays``, ``encdec_from_arrays`` and ``vlm_from_arrays`` do
+the same for the RWKV, hybrid, encoder-decoder and vision-LM trees, and
 ``model_from_arrays`` picks by the config's family.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Sequence
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -135,17 +136,29 @@ def _unstack(path: str, arr, dims: Sequence[int],
             for idx in np.ndindex(*dims)}
 
 
+def _install_stacked(model: nn.Module, params: Mapping[str, Any],
+                     stacks: Mapping[str, Tuple[Sequence[int], str]],
+                     device: DeviceLike) -> nn.Module:
+    """Install a tree into ``model`` (built on the meta device). Every leaf
+    under a top-level key of ``stacks`` is stacked over that key's dims
+    (``(dims, what)``, ``what`` naming them in errors): index ``idx`` of
+    the stack goes to ``key.<idx>...``; other leaves go as they are."""
+    got: Dict[str, Any] = {}
+    for path, arr in _flatten(params).items():
+        top = path.split(".", 1)[0]
+        if top in stacks:
+            got.update(_unstack(path, arr, *stacks[top]))
+        else:
+            got[path] = np.asarray(arr)
+    return _install(model, got, resolve_device(device))
+
+
 def _layer_stacked(model: nn.Module, cfg, params: Mapping[str, Any],
                    device: DeviceLike) -> nn.Module:
     """Install a tree whose ``blocks`` leaves are stacked ``[L, ...]`` into
     ``model`` (built on the meta device): block ``l`` takes slice ``l``."""
-    got: Dict[str, Any] = {}
-    for path, arr in _flatten(params).items():
-        if path.startswith("blocks."):
-            got.update(_unstack(path, arr, (cfg.n_layers,), "n_layers"))
-        else:
-            got[path] = np.asarray(arr)
-    return _install(model, got, resolve_device(device))
+    return _install_stacked(
+        model, params, {"blocks": ((cfg.n_layers,), "n_layers")}, device)
 
 
 def decoder_lm_from_arrays(cfg, params: Mapping[str, Any],
@@ -190,25 +203,52 @@ def hybrid_from_arrays(cfg, params: Mapping[str, Any],
     """
     from repro_torch.models.hybrid import HybridModel
 
-    dev = resolve_device(device)
     model = HybridModel(cfg, device="meta")
-    dims = (model.n_groups, cfg.attn_every)
-    got: Dict[str, Any] = {}
-    for path, arr in _flatten(params).items():
-        if path.startswith("mamba_blocks."):
-            got.update(_unstack(path, arr, dims, "(groups, attn_every)"))
-        else:
-            got[path] = np.asarray(arr)
-    return _install(model, got, dev)
+    return _install_stacked(
+        model, params, {"mamba_blocks": ((model.n_groups, cfg.attn_every),
+                                         "(groups, attn_every)")}, device)
+
+
+def encdec_from_arrays(cfg, params: Mapping[str, Any],
+                       device: DeviceLike = None):
+    """A port ``EncDecLM`` holding the reference's parameters: ``{"embed":
+    {"table"}, "enc_blocks": {...}, "dec_blocks": {...}, "ln_enc",
+    "ln_f", "head": {"w"}}`` with every ``enc_blocks`` leaf stacked
+    ``[n_enc, ...]`` and every ``dec_blocks`` leaf ``[L, ...]``. Raises on
+    a missing, extra or misshapen leaf."""
+    from repro_torch.models.encdec import EncDecLM
+
+    model = EncDecLM(cfg, device="meta")
+    return _install_stacked(
+        model, params, {"enc_blocks": ((model.n_enc,), "n_enc_layers"),
+                        "dec_blocks": ((cfg.n_layers,), "n_layers")}, device)
+
+
+def vlm_from_arrays(cfg, params: Mapping[str, Any],
+                    device: DeviceLike = None):
+    """A port ``VisionLM`` holding the reference's parameters: ``{"embed":
+    {"table"}, "self_blocks": {...}, "cross_blocks": {...}, "ln_f",
+    "head": {"w"}}`` with every ``self_blocks`` leaf stacked twice,
+    ``[n_super, self_per_block, ...]``, and every ``cross_blocks`` leaf
+    (the ``gate`` [n_super, 1] among them) once, ``[n_super, ...]``.
+    Raises on a missing, extra or misshapen leaf."""
+    from repro_torch.models.vision_lm import VisionLM
+
+    model = VisionLM(cfg, device="meta")
+    n = model.n_super
+    return _install_stacked(
+        model, params,
+        {"self_blocks": ((n, model.self_per_block),
+                         "(n_super, self_per_block)"),
+         "cross_blocks": ((n,), "n_super")}, device)
 
 
 def model_from_arrays(cfg, params: Mapping[str, Any],
                       device: DeviceLike = None):
     """The port's model of ``cfg.family`` holding the reference's
-    parameter tree (numpy arrays); a family the port does not carry
-    raises ``NotImplementedError`` (from ``DecoderLM``)."""
-    if cfg.family == "hybrid":
-        return hybrid_from_arrays(cfg, params, device)
-    if cfg.family == "ssm":
-        return rwkv_from_arrays(cfg, params, device)
-    return decoder_lm_from_arrays(cfg, params, device)
+    parameter tree (numpy arrays); an unknown family raises
+    ``NotImplementedError`` (from ``DecoderLM``)."""
+    by_family = {"hybrid": hybrid_from_arrays, "ssm": rwkv_from_arrays,
+                 "encdec": encdec_from_arrays, "vlm": vlm_from_arrays}
+    return by_family.get(cfg.family, decoder_lm_from_arrays)(cfg, params,
+                                                             device)

@@ -4,8 +4,8 @@ architectures.
 ``get_config(name)`` returns an architecture's full published config and
 ``reduced_config(name)`` a structure-preserving small variant for CPU tests
 (same family and topology, tiny widths). The registry keeps every id and
-alias of the reference; only the architectures in ``PORTED_IDS`` have a
-config in the port, and any other id raises.
+alias of the reference, and the port carries every one of them
+(``PORTED_IDS``); ``PENDING_FAMILIES`` is empty.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from repro_torch.configs.paper_models import (
     build_paper_graph,
     build_paper_model,
 )
-from repro_torch.models.base import ArchConfig, pending_item
+from repro_torch.models.base import ArchConfig
 
 ARCH_IDS: List[str] = [
     "llama_3_2_vision_90b",
@@ -34,17 +34,11 @@ ARCH_IDS: List[str] = [
 ]
 
 # architectures whose config (and family) the port carries
-PORTED_IDS: List[str] = [
-    "rwkv6_7b", "yi_6b", "qwen1_5_4b", "mistral_large_123b", "qwen1_5_110b",
-    "phi3_5_moe_42b", "kimi_k2_1t", "zamba2_2_7b",
-]
+PORTED_IDS: List[str] = list(ARCH_IDS)
 
 # the family of each id the port does not carry yet (its error names the
-# roadmap item that ports it)
-PENDING_FAMILIES: Dict[str, str] = {
-    "llama_3_2_vision_90b": "vlm",
-    "seamless_m4t_large_v2": "encdec",
-}
+# roadmap item that ports it); none is left
+PENDING_FAMILIES: Dict[str, str] = {}
 
 # CLI aliases (assignment spelling -> module name)
 ALIASES: Dict[str, str] = {
@@ -65,11 +59,6 @@ def get_config(name: str) -> ArchConfig:
     mod_name = ALIASES.get(name, name.replace("-", "_").replace(".", "_"))
     if mod_name not in ARCH_IDS:
         raise KeyError(f"unknown arch {name!r}; known: {ARCH_IDS}")
-    if mod_name not in PORTED_IDS:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet "
-            f"({pending_item(PENDING_FAMILIES[mod_name])}); ported: "
-            f"{PORTED_IDS}")
     return importlib.import_module(f"repro_torch.configs.{mod_name}").CONFIG
 
 

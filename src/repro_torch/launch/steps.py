@@ -17,6 +17,7 @@ from repro_torch.models.base import (
     ArchConfig,
     PageView,
     ShapeSpec,
+    prefill_inputs,
     split_spec_state,
     state_batch_axes,
     wipe_state_slots,
@@ -33,11 +34,19 @@ def _expect(name: str, t: torch.Tensor, shape: Tuple[int, ...]) -> None:
 
 
 def make_prefill_step(cfg: ArchConfig, shape: ShapeSpec) -> Step:
-    """``prefill(model, {"tokens": [B, S]}) -> logits [B, S, V]`` fp32."""
-    want = (shape.global_batch, shape.seq_len)
+    """``prefill(model, batch) -> logits [B, S_dec, V]`` fp32, the batch
+    holding the family's inputs at this shape (``prefill_inputs``:
+    ``tokens`` [B, S], plus ``frames`` for the encoder-decoder, whose
+    decoder runs ``max(S // dec_ratio, 128)`` tokens, or ``vision`` for
+    the vision LM)."""
+    want = {name: s for name, (s, _) in prefill_inputs(cfg, shape).items()}
 
     def prefill_step(model, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        _expect("tokens", batch["tokens"], want)
+        if set(batch) != set(want):
+            raise ValueError(f"prefill batch has {sorted(batch)}, this step "
+                             f"was built for {sorted(want)}")
+        for name, s in want.items():
+            _expect(name, batch[name], s)
         return model.forward(batch)
 
     return prefill_step

@@ -1,4 +1,5 @@
-"""Attention: GQA self-attention and KV-cache decode, dense and paged.
+"""Attention: GQA self-attention, cross-attention and KV-cache decode,
+dense and paged.
 
 Prefill uses a query-chunked attention so the score matrix never lives at
 [B, H, S, S], or, behind ``USE_FLASH_KERNEL``, the flash-attention kernel
@@ -131,6 +132,48 @@ def self_attention(
     k = apply_rope(k, positions, inv_freq)
     o = mha(q, k, v, causal=causal, q_chunk=q_chunk)
     return linear(params["wo"], o.reshape(B, S, n_heads * head_dim))
+
+
+def cross_attention(
+    params: Params,
+    x: torch.Tensor,              # [B, Sq, d]
+    memory: torch.Tensor,         # [B, Sm, d_mem] (encoder / vision states)
+    *,
+    n_heads: int,
+    n_kv: int,
+    head_dim: int,
+    memory_valid: Optional[torch.Tensor] = None,   # [B, Sm] bool or None
+    q_chunk: int = 1024,
+) -> torch.Tensor:
+    """Queries from ``x``, keys and values from ``memory``, no RoPE and no
+    causal mask; ``memory_valid`` hides memory rows. Through :func:`mha`,
+    so flash runs only where the reference would run it (Sq == Sm and no
+    mask)."""
+    B, Sq, _ = x.shape
+    Sm = memory.shape[1]
+    q = linear(params["wq"], x).reshape(B, Sq, n_heads, head_dim)
+    k = linear(params["wk"], memory).reshape(B, Sm, n_kv, head_dim)
+    v = linear(params["wv"], memory).reshape(B, Sm, n_kv, head_dim)
+    o = mha(q, k, v, causal=False, kv_valid=memory_valid, q_chunk=q_chunk)
+    return linear(params["wo"], o.reshape(B, Sq, n_heads * head_dim))
+
+
+def decode_cross_attention(
+    params: Params,
+    x: torch.Tensor,              # [B, 1, d] current token hidden
+    cross_k: torch.Tensor,        # [B, Sm, KV, hd] the memory's keys
+    cross_v: torch.Tensor,
+    *,
+    n_heads: int,
+    head_dim: int,
+) -> torch.Tensor:
+    """One decode token's cross-attention over the memory's precomputed
+    keys and values (the decode state's ``cross_k``/``cross_v``), through
+    the plain path of :func:`mha`. Returns [B, 1, d]."""
+    B = x.shape[0]
+    q = linear(params["wq"], x).reshape(B, 1, n_heads, head_dim)
+    o = mha(q, cross_k, cross_v, causal=False)
+    return linear(params["wo"], o.reshape(B, 1, n_heads * head_dim))
 
 
 def decode_self_attention(

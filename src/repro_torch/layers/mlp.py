@@ -1,4 +1,5 @@
-"""SwiGLU feed-forward block, with the quantized down-projection."""
+"""Feed-forward blocks: SwiGLU (with the quantized down-projection) and
+the classic GELU/ReLU MLP."""
 
 from __future__ import annotations
 
@@ -58,3 +59,14 @@ def swiglu(params: Mapping[str, Mapping[str, torch.Tensor]], x: torch.Tensor,
         _observe(record, "act", h)
         _observe(record, "out", y)
     return y
+
+
+def mlp(params: Mapping[str, Mapping[str, torch.Tensor]], x: torch.Tensor,
+        act: str = "gelu") -> torch.Tensor:
+    """The classic two-layer MLP (with the biases its ``up`` and ``down``
+    carry): ``down(act(up(x)))``, the activation in fp32. ``"gelu"`` is
+    the tanh form, the reference's ``jax.nn.gelu`` default (torch's own
+    default is the exact erf form); anything else is ReLU."""
+    hf = linear(params["up"], x).float()
+    hf = F.gelu(hf, approximate="tanh") if act == "gelu" else F.relu(hf)
+    return linear(params["down"], hf.to(x.dtype))

@@ -1,9 +1,9 @@
 """Model API of the port: the architecture config, the shape table, the
 decode LM head and the family dispatch.
 
-A jax-free copy of ``repro.models.base`` for the families the port
-carries (the dense and MoE decoder LMs, RWKV and the hybrid). There is no
-``ParamSpec``:
+A jax-free copy of ``repro.models.base`` for every family of the
+reference (the dense and MoE decoder LMs, RWKV, the hybrid, the
+encoder-decoder and the vision LM). There is no ``ParamSpec``:
 a model is an ``nn.Module`` that owns its parameters, in the reference's
 layout (weights ``(d_in, d_out)``, so ``x @ w`` needs no transpose), and
 :class:`PortedLM` holds what the families share.
@@ -98,19 +98,34 @@ SHAPES: Dict[str, ShapeSpec] = {
 # with ~5e-4 logit resolution over +-16 (out_shift 11).
 HEAD_SHIFTS = (5, 8, 11)
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
-# the roadmap item that ports each family the port does not carry yet
-PENDING_ITEMS: Dict[str, str] = {
-    "encdec": "ROADMAP Queue 1 item 1: the encoder-decoder family",
-    "vlm": "ROADMAP Queue 1 item 2: the vision LM family",
-}
+def prefill_inputs(cfg: ArchConfig, shape: ShapeSpec
+                   ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """The batch a prefill of ``shape`` feeds ``forward``, by name: its
+    shape and dtype (the reference's ``input_specs`` without the labels).
+    Every family takes ``tokens`` [B, S]; the encoder-decoder takes frame
+    embeddings ``frames`` [B, S, d] and a decoder run of ``max(S //
+    dec_ratio, 128)`` tokens, the vision LM patch embeddings ``vision``
+    [B, n_image_tokens, d] beside its tokens (the audio and vision
+    frontends are stubs, as in the reference)."""
+    B, S = shape.global_batch, shape.seq_len
+    if cfg.family == "encdec":
+        return {"frames": ((B, S, cfg.d_model), torch.bfloat16),
+                "tokens": ((B, max(S // cfg.dec_ratio, 128)), torch.int32)}
+    inputs = {"tokens": ((B, S), torch.int32)}
+    if cfg.family == "vlm":
+        inputs["vision"] = ((B, cfg.n_image_tokens, cfg.d_model),
+                            torch.bfloat16)
+    return inputs
+
+
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 def pending_item(family: str) -> str:
-    """The roadmap item that ports ``family`` (for error messages)."""
-    return PENDING_ITEMS.get(family, f"no roadmap item: unknown family "
-                                     f"{family!r}")
+    """The roadmap item that ports ``family`` (for error messages): every
+    family of the reference is ported, so only an unknown one gets here."""
+    return f"no roadmap item: unknown family {family!r}"
 
 
 class PageView(NamedTuple):
@@ -133,6 +148,10 @@ class PageView(NamedTuple):
 # caches, [L, B, max_len, KV, hd] dense or [L, page_count, page_size, KV,
 # hd] in the shared pool.
 PAGED_STATE_KEYS = ("cache_k", "cache_v")
+
+# The cross-attention caches of the encoder-decoder and the vision LM: the
+# memory's keys and values, per slot (batch on axis 1) and never paged.
+CROSS_STATE_KEYS = ("cross_k", "cross_v")
 
 # Prefix of the speculative draft's KV twins in a merged decode state.
 DRAFT_PREFIX = "draft_"
@@ -168,10 +187,11 @@ def state_batch_axes(state: Mapping[str, torch.Tensor],
     """Per-leaf index of the batch axis of a decode state.
 
     Every batch-laned leaf of the port's states is ``[L, B, ...]`` (axis
-    1): the KV caches, RWKV's carried inputs and wkv state, and the
-    hybrid's SSM and conv states, whose
-    reference ``[G, E, B, ...]`` layout the port flattens to ``[G * E, B,
-    ...]``. With ``paged`` the pool leaves have a page axis instead and map
+    1): the KV caches, the cross-attention caches, RWKV's carried inputs
+    and wkv state, and the hybrid's SSM and conv states, whose reference
+    ``[G, E, B, ...]`` layout the port flattens to ``[G * E, B, ...]``, as
+    it flattens the vision LM's ``[n_super, self_per_block, B, ...]`` KV
+    caches. With ``paged`` the pool leaves have a page axis instead and map
     to ``-1``: they need no per-slot wipe, since stale pages are invisible
     behind the local-position mask, and :func:`wipe_state_slots` skips
     them.
@@ -220,6 +240,14 @@ def model_class(family: str) -> type:
         from repro_torch.models.hybrid import HybridModel
 
         return HybridModel
+    if family == "encdec":
+        from repro_torch.models.encdec import EncDecLM
+
+        return EncDecLM
+    if family == "vlm":
+        from repro_torch.models.vision_lm import VisionLM
+
+        return VisionLM
     raise NotImplementedError(
         f"family {family!r} is not ported yet ({pending_item(family)}); "
         f"the port carries {', '.join(PORTED_FAMILIES)}")
@@ -273,11 +301,13 @@ def decode_block_head_logits(head_w: torch.Tensor, x: torch.Tensor,
     return matmul_f32(x, head_w)
 
 
-# The reference's initialiser of each leaf, by leaf name: zeros, ones,
+# The reference's initialiser of each leaf, by leaf name: zeros (among
+# them every bias and the vision LM's cross-attention ``gate``), ones,
 # "small" (std 0.02: RWKV's token-shift mixes and per-head bonus), the
 # embedding table (std d_model**-0.5), and otherwise a normal weight at
 # fan-in scale.
-ZERO_LEAVES = ("b", "bias", "conv_b", "dt_bias", "A_log", "w0", "ln_x_bias")
+ZERO_LEAVES = ("b", "bias", "conv_b", "dt_bias", "A_log", "w0", "ln_x_bias",
+               "gate")
 ONE_LEAVES = ("scale", "norm_scale", "D", "ln_x_scale")
 SMALL_LEAVES = ("mu_r", "mu_k", "mu_v", "mu_w", "mu_g", "mu_ck", "mu_cr",
                 "u")

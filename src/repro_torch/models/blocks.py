@@ -1,5 +1,7 @@
-"""The pre-norm residual transformer block of the decoder LMs: GQA
-attention, then a dense SwiGLU FFN or a mixture of experts."""
+"""The pre-norm residual transformer blocks: the decoder LMs' GQA
+attention, then a dense SwiGLU FFN or a mixture of experts; and the vision
+LM's gated cross-attention block. Also the parameter helpers every model
+of the port builds its tree with."""
 
 from __future__ import annotations
 
@@ -10,6 +12,8 @@ from torch import nn
 
 from repro_torch.layers.attention import (
     block_decode_self_attention,
+    cross_attention,
+    decode_cross_attention,
     decode_self_attention,
     paged_block_decode_self_attention,
     paged_decode_self_attention,
@@ -42,6 +46,36 @@ def norm_params(d: int, *, device, dtype) -> nn.ParameterDict:
                                                   dtype=dtype)})
 
 
+def layernorm_params(d: int, *, device, dtype) -> nn.ParameterDict:
+    return nn.ParameterDict({
+        "scale": empty_param(d, device=device, dtype=dtype),
+        "bias": empty_param(d, device=device, dtype=dtype)})
+
+
+def attention_params(cfg: ArchConfig, *, qkv_bias: bool = False,
+                     device, dtype) -> nn.ModuleDict:
+    """``wq``, ``wk``, ``wv`` (biased with ``qkv_bias``) and ``wo`` of a
+    GQA attention at ``cfg``'s widths; the keys and values of a
+    cross-attention project the memory, which has width d_model too."""
+    d, hd = cfg.d_model, cfg.head_dim
+    kw = dict(device=device, dtype=dtype)
+    return nn.ModuleDict({
+        "wq": linear_params(d, cfg.n_heads * hd, bias=qkv_bias, **kw),
+        "wk": linear_params(d, cfg.n_kv * hd, bias=qkv_bias, **kw),
+        "wv": linear_params(d, cfg.n_kv * hd, bias=qkv_bias, **kw),
+        "wo": linear_params(cfg.n_heads * hd, d, **kw),
+    })
+
+
+def mlp_params(d: int, d_ff: int, *, device, dtype) -> nn.ModuleDict:
+    """The GELU MLP's ``up`` and ``down``, each with a bias."""
+    return nn.ModuleDict({
+        "up": linear_params(d, d_ff, bias=True, device=device, dtype=dtype),
+        "down": linear_params(d_ff, d, bias=True, device=device,
+                              dtype=dtype),
+    })
+
+
 def swiglu_params(d: int, d_ff: int, *, device, dtype) -> nn.ModuleDict:
     return nn.ModuleDict({
         "gate": linear_params(d, d_ff, device=device, dtype=dtype),
@@ -64,15 +98,10 @@ class AttnBlock(nn.Module):
 
     def __init__(self, cfg: ArchConfig, *, device, dtype):
         super().__init__()
-        d, hd = cfg.d_model, cfg.head_dim
+        d = cfg.d_model
         kw = dict(device=device, dtype=dtype)
         self.ln1 = norm_params(d, **kw)
-        self.attn = nn.ModuleDict({
-            "wq": linear_params(d, cfg.n_heads * hd, bias=cfg.qkv_bias, **kw),
-            "wk": linear_params(d, cfg.n_kv * hd, bias=cfg.qkv_bias, **kw),
-            "wv": linear_params(d, cfg.n_kv * hd, bias=cfg.qkv_bias, **kw),
-            "wo": linear_params(cfg.n_heads * hd, d, **kw),
-        })
+        self.attn = attention_params(cfg, qkv_bias=cfg.qkv_bias, **kw)
         self.ln2 = norm_params(d, **kw)
         self.use_moe = cfg.family == "moe"
         if self.use_moe:
@@ -162,3 +191,46 @@ class AttnBlock(nn.Module):
         x = x + h
         h, _ = self.ffn_part(rmsnorm(self.ln2, x), cfg)
         return x + h, ck, cv
+
+
+class CrossBlock(nn.Module):
+    """The vision LM's gated cross-attention block over a memory (the
+    patch embeddings): ``x + tanh(gate) * xattn(rmsnorm(x), memory)``, then
+    ``+ swiglu(rmsnorm(.))``. Parameter names follow the reference's tree
+    (``ln1``, ``xattn.{wq,wk,wv,wo}``, ``ln2``, ``ffn.{gate,up,down}``,
+    ``gate`` [1]); the gate starts at zero, so a fresh block adds only its
+    FFN. Its SwiGLU always runs float, as in the reference, even on a
+    quantized plan."""
+
+    def __init__(self, cfg: ArchConfig, *, device, dtype):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.ln1 = norm_params(cfg.d_model, **kw)
+        self.xattn = attention_params(cfg, **kw)
+        self.ln2 = norm_params(cfg.d_model, **kw)
+        self.ffn = swiglu_params(cfg.d_model, cfg.d_ff, **kw)
+        self.gate = empty_param(1, **kw)
+
+    def _gated(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        gate = torch.tanh(self.gate.float()).to(x.dtype)
+        x = x + gate * h
+        return x + swiglu(self.ffn, rmsnorm(self.ln2, x))
+
+    def forward(self, x: torch.Tensor, memory: torch.Tensor, cfg: ArchConfig,
+                memory_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Prefill of x [B, S, d] over ``memory`` [B, M, d]."""
+        h = cross_attention(
+            self.xattn, rmsnorm(self.ln1, x), memory,
+            n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
+            memory_valid=memory_valid, q_chunk=cfg.q_chunk,
+        )
+        return self._gated(x, h)
+
+    def decode(self, x: torch.Tensor, cross_k: torch.Tensor,
+               cross_v: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+        """One decode token x [B, 1, d] over the memory's precomputed keys
+        and values [B, M, KV, hd] (``VisionLM.init_cross_cache``)."""
+        h = decode_cross_attention(
+            self.xattn, rmsnorm(self.ln1, x), cross_k, cross_v,
+            n_heads=cfg.n_heads, head_dim=cfg.head_dim)
+        return self._gated(x, h)

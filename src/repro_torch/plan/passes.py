@@ -3,7 +3,7 @@
     ResolveDevice -> Quantize -> Compile
 
 The reference's mesh, sharding-rule and stage-placement passes have no
-counterpart on one card (ROADMAP Queue 1 item 4). Every decision is
+counterpart on one card (ROADMAP Queue 1 item 2). Every decision is
 recorded in the :class:`~repro_torch.plan.ir.PlanIR`.
 
 * **ResolveDevice** picks the card (or the device the caller names).
@@ -81,9 +81,9 @@ def calibrate_mlp_shifts(
 
     ``w_shift`` comes from the absmax over every ``ffn.down`` weight
     (``model.mlp_down_weights()``: every block of the dense LM, the one
-    shared block of the hybrid). With
-    ``observe`` the activation/output shifts come from the ranges a short
-    float calibration decode of ``model`` observes (one headroom bit
+    shared block of the hybrid, the vision LM's self and cross blocks).
+    With ``observe`` the activation/output shifts come from the ranges a
+    short float calibration decode of ``model`` observes (one headroom bit
     reserved for unseen data); without it they fall back to the analytic
     worst case ``|x|_max * max column-abs-sum(w)``. The output shift is
     capped so the SRS shift stays >= 0.

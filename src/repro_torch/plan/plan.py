@@ -169,7 +169,7 @@ class ExecutionPlan:
         }
         if kind == "train":
             raise NotImplementedError(
-                "training is not ported yet (ROADMAP Queue 1 item 3)")
+                "training is not ported yet (ROADMAP Queue 1 item 1)")
         if kind not in builders:
             raise ValueError(f"unknown executable kind {kind!r}")
         key = self._key(kind, shape.global_batch, shape.seq_len)

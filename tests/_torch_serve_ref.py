@@ -227,15 +227,46 @@ FAMILY_PAGED = (64, 16)        # tests/test_paged_serve.py
 TRACES = {"parity": PARITY_TRACE, "shared": SHARED_TRACE}
 
 
+# Families whose reference initialisers leave leaves at zero that the tests
+# must see nonzero: the encoder-decoder's MLP and LayerNorm biases and the
+# vision LM's cross-attention gates (at zero, tanh(gate) = 0 and a cross
+# block adds nothing from its attention). ``family_params`` draws them.
+DRAWN_FAMILIES = ("encdec", "vlm")
+
+
+def draw_zero_leaves(params, seed: int):
+    """``params`` with every bias (``b``, ``bias``) drawn from N(0, 0.5^2)
+    and every ``gate`` uniform in [0.5, 1], from numpy seed ``seed + 23``,
+    in each leaf's dtype."""
+    rng = np.random.default_rng(seed + 23)
+
+    def draw(path, leaf):
+        name = path[-1].key
+        if name == "gate":
+            new = rng.uniform(0.5, 1.0, leaf.shape)
+        elif name in ("b", "bias"):
+            new = rng.standard_normal(leaf.shape) * 0.5
+        else:
+            return leaf
+        return jnp.asarray(new, leaf.dtype)
+
+    return jax.tree_util.tree_map_with_path(draw, params)
+
+
 @functools.lru_cache(maxsize=None)
 def family_params(arch: str, seed: int):
-    """The reference's parameters of ``arch``'s reduced config."""
+    """The reference's parameters of ``arch``'s reduced config (with the
+    zero leaves of :data:`DRAWN_FAMILIES` drawn at random)."""
     from repro.configs import reduced_config
     from repro.dist.sharding import init_params
     from repro.models import build_model
 
-    return init_params(jax.random.PRNGKey(seed),
-                       build_model(reduced_config(arch)).param_specs())
+    cfg = reduced_config(arch)
+    params = init_params(jax.random.PRNGKey(seed),
+                         build_model(cfg).param_specs())
+    if cfg.family in DRAWN_FAMILIES:
+        params = draw_zero_leaves(params, seed)
+    return params
 
 
 @functools.lru_cache(maxsize=None)

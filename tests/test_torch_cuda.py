@@ -446,31 +446,79 @@ def test_flash_at_the_qwen_prefill_shape(cuda):
                                rtol=0.0)
 
 
-_FAMILIES = ["qwen1.5-4b", "phi3.5-moe-42b-a6.6b", "rwkv6-7b"]
+_FAMILIES = ["qwen1.5-4b", "phi3.5-moe-42b-a6.6b", "rwkv6-7b",
+             "seamless-m4t-large-v2", "llama-3.2-vision-90b"]
+
+
+def _family_weights(cfg):
+    """``init_params(0)`` on the CPU, with the leaves the reference starts
+    at zero in the cross-attention families drawn at random (biases
+    N(0, 0.5^2), the vision LM's gates uniform in [0.5, 1]), so that the
+    card runs them."""
+    from repro_torch.models import build_model
+
+    model = build_model(cfg, device="cpu").init_params(0)
+    if cfg.family in ("encdec", "vlm"):
+        gen = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                leaf = name.rsplit(".", 1)[-1]
+                if leaf == "gate":
+                    p.copy_(torch.rand(p.shape, generator=gen) * 0.5 + 0.5)
+                elif leaf in ("b", "bias"):
+                    p.copy_(torch.randn(p.shape, generator=gen) * 0.5)
+    return model.state_dict()
+
+
+def _family_batch(cfg):
+    """The family's prefill inputs on the CPU: tokens [2, 40], and frames
+    [2, 64, d] (the encoder's non-causal flash; 40 decoder queries over 64
+    frames run the plain cross-attention) or vision [2, n_image, d]."""
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 40)))}
+    memory = {"encdec": ("frames", 64), "vlm": ("vision",
+                                                cfg.n_image_tokens)}
+    if cfg.family in memory:
+        name, rows = memory[cfg.family]
+        batch[name] = torch.from_numpy(rng.standard_normal(
+            (2, rows, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+    return batch
+
+
+def _flash_sites(cfg):
+    """Flash launches per prefill: every attention layer, every encoder
+    and decoder layer, every self block; none in RWKV."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers + cfg.n_layers
+    if cfg.family == "vlm":
+        return cfg.n_layers // cfg.cross_attn_every * (
+            cfg.cross_attn_every - 1)
+    return cfg.n_layers
 
 
 @pytest.mark.parametrize("arch", _FAMILIES)
 def test_reduced_family_forward_on_card_equals_cpu(cuda, arch):
-    """The reduced config's prefill of [2, 40] tokens on the card: flash
-    once per attention layer (none in RWKV), logits within mean 0.05 of
-    the CPU run, and its argmax where the CPU's top-2 gap exceeds 0.2."""
+    """The reduced config's prefill of [2, 40] tokens (with its frames or
+    patch embeddings) on the card: flash once per attention layer (none in
+    RWKV), logits within mean 0.05 of the CPU run, and its argmax where
+    the CPU's top-2 gap exceeds 0.2."""
     from repro_torch.configs import reduced_config
     from repro_torch.models import build_model
 
     cfg = reduced_config(arch)
-    weights = build_model(cfg, device="cpu").init_params(0).state_dict()
+    weights = _family_weights(cfg)
     models = {}
     for dev in ("cpu", "cuda"):
         models[dev] = build_model(cfg, device=dev)
         models[dev].load_state_dict(weights)
-    toks = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab, (2, 40)))
-    want = models["cpu"]({"tokens": toks})
+    batch = _family_batch(cfg)
+    want = models["cpu"](batch)
     before = flash_ops.launches
-    got = models["cuda"]({"tokens": toks.to(cuda)})
+    got = models["cuda"]({k: t.to(cuda) for k, t in batch.items()})
     torch.cuda.synchronize()
-    sites = 0 if cfg.family == "ssm" else cfg.n_layers
-    assert flash_ops.launches == before + sites
+    assert flash_ops.launches == before + _flash_sites(cfg)
     assert torch.isfinite(got).all()
     got = got.cpu()
     top2 = torch.topk(want, 2, dim=-1).values
@@ -487,23 +535,65 @@ def test_reduced_family_forward_on_card_equals_cpu(cuda, arch):
 def test_family_serving_on_card_equals_cpu(cuda, arch, quantized, paged):
     """The reduced config served continuous (k = 4) on the card gives its
     CPU run's tokens, and launches qmatmul per decode step once for the
-    head plus, for qwen, once per layer's down-projection. The random
-    reduced qwen and phi3.5-moe keep fewer steps above the card's gap
-    than yi-6b's, so 10 tokens is the least compared."""
+    head (not in the encoder-decoder and the vision LM, whose heads stay
+    float) plus once per quantized down-projection (qwen's layers, the
+    vision LM's self blocks). The random reduced qwen and phi3.5-moe keep
+    fewer steps above the card's gap than yi-6b's, so 10 tokens is the
+    least compared."""
     from repro_torch.configs import reduced_config
-    from repro_torch.models import build_model
 
     cfg = reduced_config(arch)
-    weights = build_model(cfg, device="cpu").init_params(0).state_dict()
+    weights = _family_weights(cfg)
     cpu_b, want = _continuous("cpu", quantized, paged, weights, arch=arch)
     before = ops.launches
     card_b, got = _continuous("cuda", quantized, paged, weights, arch=arch)
     torch.cuda.synchronize()
     runs = card_b.scheduler.stats()["micro_runs"]
-    per_step = 1 + (cfg.n_layers if cfg.family == "dense" else 0)
+    per_step = ({"dense": 1 + cfg.n_layers, "vlm": _flash_sites(cfg),
+                 "encdec": 0}.get(cfg.family, 1))
     assert ops.launches - before == (per_step * 4 * runs if quantized
                                      else 0)
     _hold_to_cpu_run(cpu_b.plan.model, got, want, min_compared=10)
     if paged:
         s = card_b.stats()["paged"]
         assert s["pages_in_use"] == s["scratch_pages"] + s["prefix_entries"]
+
+
+# ---------------------------------------------------------------------------
+# the cross-attention families' kernel shapes
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["one", "split"])
+def test_qmatmul_at_the_vlm_down_shape(cuda, split):
+    """8 x 28672 x 8192 a16w8, llama-3.2-vision's self-block
+    down-projection at the continuous bucket's batch, over the full int16
+    range, with one split of K and with four."""
+    M, K, N = 8, 28672, 8192
+    rng = np.random.default_rng(K)
+    x = torch.from_numpy(rng.integers(-(2 ** 15), 2 ** 15, (M, K)).astype(
+        np.int16)).to(cuda)
+    w = _rand(rng, (K, N), "int8", cuda)
+    auto = ops.plan(M, K, N, torch.cuda.get_device_properties(0)
+                    .multi_processor_count)
+    p = (ops.Plan(auto.block_m, 4, K // 4) if split
+         else ops.Plan(auto.block_m, 1, K))
+    for shift in (2, 7, 10):
+        kw = dict(shift=shift, out_dtype="int16")
+        assert torch.equal(ops.qlinear_planned(x, w, None, p, **kw),
+                           qlinear_ref(x, w, None, **kw))
+
+
+@pytest.mark.parametrize("BH,S,hd,causal", [
+    (32, 2048, 64, False), (32, 512, 64, True), (128, 2048, 128, True)],
+    ids=["seamless-encoder", "seamless-decoder", "vlm-self"])
+def test_flash_at_the_cross_family_prefill_shapes(cuda, BH, S, hd, causal):
+    """bf16 at seamless's encoder (non-causal) and decoder shapes and at
+    llama-3.2-vision's self-attention shape, within 2e-2 of the plain
+    version."""
+    q, k, v = _qkv(np.random.default_rng(BH + S), BH, S, S, hd,
+                   torch.bfloat16, cuda)
+    got = flash_ops.flash_attention(q, k, v, causal=causal)
+    want = attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=0.0)

@@ -314,26 +314,27 @@ def test_fifo_batcher_matches_reference(jcfg, jparams, arrays, quantized):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch,family,item", [
-    ("llama-3.2-vision-90b", "vlm", "ROADMAP Queue 1 item 2"),
-    ("seamless-m4t-large-v2", "encdec", "ROADMAP Queue 1 item 1"),
-], ids=["vlm", "encdec"])
-def test_only_the_dense_yi_6b_is_ported(tcfg, arch, family, item):
-    """Named when yi-6b was the one config of the port; it now holds the
-    ids and families the port does not carry yet: each raises with the
-    roadmap item that ports it, while every ported id has its config."""
+def test_only_the_dense_yi_6b_is_ported(tcfg):
+    """Named when yi-6b was the one config of the port; every id of the
+    reference is ported now: each has its config and its family's model,
+    no family is pending, and an unknown family still names no roadmap
+    item."""
     from repro_torch.configs import ARCH_IDS, PENDING_FAMILIES, PORTED_IDS
+    from repro_torch.models.base import PORTED_FAMILIES
 
     assert get_config("yi-6b").d_model == 4096
-    assert sorted(PORTED_IDS + list(PENDING_FAMILIES)) == sorted(ARCH_IDS)
+    assert sorted(PORTED_IDS) == sorted(ARCH_IDS) and len(ARCH_IDS) == 10
+    assert PENDING_FAMILIES == {}
+    families = {get_config(name).family for name in PORTED_IDS}
+    assert families == set(PORTED_FAMILIES) == {
+        "dense", "moe", "ssm", "hybrid", "encdec", "vlm"}
     for name in PORTED_IDS:
-        assert get_config(name).family in ("dense", "moe", "ssm", "hybrid")
-    with pytest.raises(NotImplementedError, match=item):
-        get_config(arch)
+        cfg = reduced_config(name)
+        assert build_model(cfg, device="meta").cfg is cfg
     with pytest.raises(KeyError):
         get_config("no-such-arch")
-    with pytest.raises(NotImplementedError, match=item):
-        build_model(tcfg.with_(family=family), device="cpu")
+    with pytest.raises(NotImplementedError, match="no roadmap item"):
+        build_model(tcfg.with_(family="diffusion"), device="cpu")
 
 
 def test_serving_features_not_ported_raise():
@@ -572,7 +573,9 @@ def _spec_leaves(tree, prefix=""):
 
 
 @pytest.mark.parametrize("arch", ["yi_6b", "qwen1_5_4b", "phi3_5_moe_42b",
-                                  "kimi_k2_1t", "rwkv6_7b", "zamba2_2_7b"])
+                                  "kimi_k2_1t", "rwkv6_7b", "zamba2_2_7b",
+                                  "seamless_m4t_large_v2",
+                                  "llama_3_2_vision_90b"])
 def test_init_params_kinds_match_reference(arch):
     """Every parameter's initialiser kind and scale equal the reference's
     ``ParamSpec`` (zeros, ones, small 0.02, embed d_model**-0.5, normal at
