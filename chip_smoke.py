@@ -182,6 +182,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
    down-projection) with split-K on and off, and phase 5 holds flash at
    [2*16, 2048, 64] bf16 non-causal, [2*16, 512, 64] causal and [2*64,
    2048, 128] causal, all timed in phase 8 beside their bounds and SDPA.
+17. Training at full size: qwen1.5-4b (40 layers, 3.95 B random bf16
+    parameters from ``init_train_state(0)``), the train_4k shape cut
+    to batch 2 x 4096, adamw at the config's lr (3e-4) on the synthetic
+    stream's first batch (seed 0), through ``plan.executable("train")``.
+    The step-0 training loss (the plain attention, as in the reference's
+    training) is held within ``TRAIN_LOSS_TOL`` of the cross-entropy of
+    the prefill forward's logits (flash) on the same batch; 8 steps on
+    that batch, the loss falling by ``TRAIN_LOSS_DROP`` (on fresh batches
+    the config's lr, without warmup as in the reference, spikes in the
+    first steps at this width); flash and qmatmul launched 0 times over the
+    steps; the peak memory, the median step time, tokens/s, the profiler
+    split of one step and the share of 989 TFLOP/s that the model FLOPs
+    make of it. Then restart: qwen1.5-4b at full width cut to 2 layers
+    (the full vocab), 6 steps with a checkpoint every 3 and a failure
+    injected at step 4, resumed by a new trainer, on the stream: its
+    losses are printed, and its parameters are
+    ``torch.equal`` to an uninterrupted run's; each checkpoint's size and
+    save time are printed, in a directory under ``build/`` deleted after.
+18. adafactor at full width: mistral-large-123b cut to 2 of 88 layers (d
+    12288, d_ff 28672, vocab 32768: 3.57 B parameters), batch 1 x 4096, 3
+    steps: finite losses and grad norms, the factored state's bytes, the
+    peak memory and the step time.
 
 The last two lines are the ``kernels`` JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -189,17 +211,25 @@ The last two lines are the ``kernels`` JSON record and
 
 from __future__ import annotations
 
-import contextlib
-import gc
-import json
-import statistics
-import subprocess
-import sys
-import time
-from pathlib import Path
+import os
 
-import numpy as np
-import torch
+# cuBLAS reads this once, when it first starts: the training phases run
+# with deterministic algorithms (their restart is held bit for bit)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import contextlib  # noqa: E402
+import gc  # noqa: E402
+import json  # noqa: E402
+import shutil  # noqa: E402
+import statistics  # noqa: E402
+import subprocess  # noqa: E402
+import sys  # noqa: E402
+import tempfile  # noqa: E402
+import time  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -340,6 +370,27 @@ FLASH_PATHS_CROSS = [FLASH_PATH_SEAMLESS_ENC, FLASH_PATH_SEAMLESS_DEC,
 # and its device split is profiled on the first 256 tokens (the profiler's
 # cost grows with the 3 launches per token and layer)
 RWKV_PREFILL_REPS, RWKV_PROFILE_SEQ = (2, 1), 256
+# phase 17: qwen1.5-4b trained at full size; train_4k cut to batch 2, 8
+# steps on the synthetic stream's first batch (seed 0): on fresh batches
+# the config's adamw (lr 3e-4, no warmup, as in the reference) spikes in
+# its first steps at this width, so whether the model learns is read on
+# one batch. The step-0 training loss (plain attention) against the
+# cross-entropy of the flash forward's logits on the same batch: the two
+# round attention at other places, which averages out over 8192 positions
+# (nats, absolute)
+TRAIN_ARCH = QWEN_ARCH
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 4096, 8
+TRAIN_LOSS_TOL = 0.02
+# the loss after the 8th step is at least this far below step 0's (nats)
+TRAIN_LOSS_DROP = 2.0
+# restart: qwen at full width cut to 2 layers, a checkpoint every 3 steps,
+# a failure injected at step 4
+RESTART_LAYERS, RESTART_STEPS, RESTART_CKPT_EVERY = 2, 6, 3
+RESTART_FAIL_AT = 4
+# phase 18: adafactor at mistral-large's full width, cut to 2 of 88 layers
+ADAFACTOR_ARCH, ADAFACTOR_LAYERS = "mistral-large-123b", 2
+ADAFACTOR_BATCH, ADAFACTOR_STEPS = 1, 3
+
 # the positions of a prefill held against a decode-step replay
 RECURRENT_CHECK = 64
 SERVE_BATCH, SERVE_MAX_LEN, SERVE_TOKENS, SERVE_WAVES = 4, 256, 8, 2
@@ -1826,6 +1877,273 @@ def time_flash(flash_ops, attention_ref, dev, case):
                 bound_by=bound_by, ops=ops, bytes=nbytes)
 
 
+def model_flops(cfg, n_params, batch, seq):
+    """Training FLOPs of one step as the usual model-FLOPs count: 6 N per
+    token, plus the causal attention's products forward and backward (6 L
+    B H hd S^2); remat's recomputation is not counted."""
+    attention = 6 * cfg.n_layers * batch * cfg.n_heads * cfg.head_dim \
+        * seq * seq
+    return 6 * n_params * batch * seq + attention
+
+
+def forward_ce(logits, labels, chunk=512):
+    """Mean next-token cross-entropy of fp32 logits [B, S, V], in chunks."""
+    total = 0.0
+    for i in range(0, logits.shape[1], chunk):
+        lg = logits[:, i:i + chunk]
+        gold = torch.gather(lg, -1, labels[:, i:i + chunk].long()[..., None])
+        total += float(torch.sum(torch.logsumexp(lg, -1) - gold[..., 0]))
+    return total / labels.numel()
+
+
+def train_stream(cfg, batch, seq):
+    from repro_torch.data import make_train_iterator
+
+    return lambda start: make_train_iterator(cfg.vocab, seq, batch, seed=0,
+                                             start_step=start)
+
+
+def run_training(dev, flash_ops, qmatmul_ops, smi):
+    """Phase 17: qwen1.5-4b trained at full size, then the restart check
+    at 2 layers."""
+    from repro_torch.models import ShapeSpec
+    from repro_torch.plan import build_plan
+    from repro_torch.train.trainer import batch_to_device
+
+    shape = ShapeSpec("train_4k_b2", TRAIN_SEQ, TRAIN_BATCH, "train")
+    plan = build_plan(TRAIN_ARCH, shape, device=dev)
+    cfg = plan.cfg
+    t0 = time.perf_counter()
+    model, opt_state = plan.init_train_state(seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = batch_to_device(next(train_stream(cfg, TRAIN_BATCH,
+                                              TRAIN_SEQ)(0)), model)
+    torch.cuda.synchronize()
+    print(f"{cfg.name}: {n_params:,} parameters, {cfg.n_layers} layers, "
+          f"initialised in {time.perf_counter() - t0:.1f} s; batch "
+          f"[{TRAIN_BATCH}, {TRAIN_SEQ}]")
+    # the step-0 loss against the flash forward's cross-entropy
+    flash_ops.launches = 0
+    logits = plan.executable("prefill").fn(model,
+                                           {"tokens": batch["tokens"]})
+    torch.cuda.synchronize()
+    fwd_flash = flash_ops.launches
+    if fwd_flash != cfg.n_layers:
+        raise AssertionError(f"the {cfg.name} forward launched flash "
+                             f"{fwd_flash} times, not {cfg.n_layers}")
+    ce = forward_ce(logits, batch["labels"])
+    del logits
+    train = plan.executable("train")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    flash_ops.launches = 0
+    qmatmul_ops.launches = 0
+    losses, gnorms, times = [], [], []
+    for _ in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        metrics = train.fn(model, opt_state, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        gnorms.append(float(metrics["grad_norm"]))
+    launches = dict(flash=flash_ops.launches, qmatmul=qmatmul_ops.launches)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{cfg.name} train: losses {[round(x, 4) for x in losses]}, grad "
+          f"norms {[round(x, 4) for x in gnorms]}, step times (ms, host "
+          f"clock + synchronize) {[round(x, 1) for x in times]}")
+    print(f"{cfg.name} train: flash launches == {launches['flash']} and "
+          f"qmatmul launches == {launches['qmatmul']} over "
+          f"{TRAIN_STEPS} steps")
+    if launches["flash"] or launches["qmatmul"]:
+        raise AssertionError(f"a kernel ran on the training path: "
+                             f"{launches}")
+    if not all(np.isfinite(losses + gnorms)):
+        raise AssertionError(f"non-finite training metrics: {losses}, "
+                             f"{gnorms}")
+    if abs(losses[0] - ce) > TRAIN_LOSS_TOL:
+        raise AssertionError(f"step-0 training loss {losses[0]} vs the "
+                             f"flash forward's cross-entropy {ce}: beyond "
+                             f"{TRAIN_LOSS_TOL}")
+    if losses[-1] > losses[0] - TRAIN_LOSS_DROP:
+        raise AssertionError(f"the loss fell from {losses[0]} to "
+                             f"{losses[-1]}, less than {TRAIN_LOSS_DROP}")
+    med = statistics.median(times[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = model_flops(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
+    split = profile_split(lambda: train.fn(model, opt_state, batch),
+                          calls=1)
+    busy = device_busy_ms(split)
+    print(f"{cfg.name} train [{TRAIN_BATCH}, {TRAIN_SEQ}] adamw on the "
+          f"stream's first batch: step-0 "
+          f"loss {losses[0]:.4f} vs the flash forward's cross-entropy "
+          f"{ce:.4f} (|diff| {abs(losses[0] - ce):.5f} <= "
+          f"{TRAIN_LOSS_TOL}); loss {losses[0]:.4f} -> {losses[-1]:.4f} in "
+          f"{TRAIN_STEPS} steps; median step {med:.1f} ms over steps "
+          f"1-{TRAIN_STEPS - 1} (host clock + synchronize), "
+          f"{tokens / med * 1e3:.1f} tokens/s; peak memory "
+          f"{peak / 1e9:.2f} GB (resident before the steps "
+          f"{resident / 1e9:.2f} GB); model FLOPs 6 N tokens + causal "
+          f"attention = {flops:.4g} per step, {flops / (med / 1e3) / 1e12:.1f}"
+          f" TFLOP/s = {flops / (med / 1e3) / H100_BF16_OPS:.3f} of the "
+          f"989 TFLOP/s bf16 peak; [{smi}]")
+    print(f"{cfg.name} train step profile: device {busy:.1f} ms (other ops; "
+          f"flash {split['flash_ms']:.4f}, qmatmul {split['qmatmul_ms']:.4f})"
+          f", profiled wall {split['profiled_wall_ms']:.1f} ms, idle share "
+          f"{1 - busy / split['profiled_wall_ms']:.3f} of the profiled step "
+          f"({1 - busy / med:.3f} of the median); largest device entries "
+          f"(ms) {[(k, round(v, 2)) for k, v in split['top']]}; [{smi}]")
+    del model, opt_state, batch, train, plan
+    free_card()
+    restart = run_restart(dev, smi)
+    return dict(launches=launches, fwd_flash=fwd_flash, losses=losses,
+                step_ms=med, peak_gb=peak / 1e9, split=split,
+                restart=restart)
+
+
+def run_restart(dev, smi):
+    """Phase 17's restart: qwen at full width cut to 2 layers, 6 steps
+    straight and again with a failure at step 4 resumed from the step-3
+    checkpoint by a new trainer; the final parameters are compared with
+    ``torch.equal``."""
+    from repro_torch.models import ShapeSpec
+    from repro_torch.plan import build_plan
+    from repro_torch.train import FailureInjector, Trainer, TrainerConfig
+    from repro_torch.train.fault import InjectedFailure
+    from repro_torch.train.trainer import model_loss
+
+    plan = build_plan(TRAIN_ARCH, ShapeSpec("train_4k_b2", TRAIN_SEQ,
+                                            TRAIN_BATCH, "train"),
+                      device=dev,
+                      config_overrides={"n_layers": RESTART_LAYERS})
+    saves = []
+
+    def fresh():
+        return plan.init_train_state(seed=0)
+
+    def trainer(ckpt_dir, every):
+        t = Trainer(model_loss, plan.optimizer, TrainerConfig(
+            steps=RESTART_STEPS, ckpt_every=every, ckpt_dir=ckpt_dir,
+            keep=1, log_every=1))
+        save = t.ckpt.save
+
+        def timed(step, state, metadata=None):
+            t0 = time.perf_counter()
+            save(step, state, metadata)
+            dt = time.perf_counter() - t0
+            path = os.path.join(ckpt_dir, f"step_{step:08d}")
+            size = sum(os.path.getsize(os.path.join(path, f))
+                       for f in os.listdir(path))
+            saves.append((step, size, dt))
+            print(f"checkpoint step {step}: {size / 1e9:.2f} GB in "
+                  f"{dt:.1f} s ({size / 1e9 / dt:.2f} GB/s)")
+
+        t.ckpt.save = timed
+        return t
+
+    stream = train_stream(plan.cfg, TRAIN_BATCH, TRAIN_SEQ)
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="ckpt_", dir=ROOT / "build")
+    try:
+        print(f"checkpoint disk: {shutil.disk_usage(tmp).free / 1e9:.1f} "
+              f"GB free")
+        model, opt_state = fresh()
+        straight, _, hist_a = trainer(os.path.join(tmp, "a"), 100).fit(
+            model, opt_state, stream, resume=False)
+        want = {n: p.detach().clone()
+                for n, p in straight.named_parameters()}
+        del straight, model, opt_state
+        shutil.rmtree(os.path.join(tmp, "a"))
+        crashed = trainer(os.path.join(tmp, "b"), RESTART_CKPT_EVERY)
+        crashed.injector = FailureInjector(fail_at_steps=(RESTART_FAIL_AT,))
+        model, opt_state = fresh()
+        try:
+            crashed.fit(model, opt_state, stream)
+        except InjectedFailure as e:
+            print(f"restart: {e}")
+        else:
+            raise AssertionError("the injected failure did not fire")
+        del model, opt_state, crashed
+        model, opt_state = fresh()
+        t0 = time.perf_counter()
+        resumed, _, hist_b = trainer(os.path.join(tmp, "b"),
+                                     RESTART_CKPT_EVERY).fit(
+            model, opt_state, stream)
+        if hist_b[0]["step"] != RESTART_CKPT_EVERY:
+            raise AssertionError(f"resumed at step {hist_b[0]['step']}, "
+                                 f"not {RESTART_CKPT_EVERY}")
+        equal = all(torch.equal(p, want[n])
+                    for n, p in resumed.named_parameters())
+        print(f"restart {TRAIN_ARCH} ({RESTART_LAYERS} layers, vocab "
+              f"{plan.cfg.vocab}): {RESTART_STEPS} steps with a failure at "
+              f"step {RESTART_FAIL_AT}, resumed at step "
+              f"{hist_b[0]['step']} (resume + {len(hist_b)} steps "
+              f"{time.perf_counter() - t0:.1f} s): final parameters "
+              f"torch.equal to the uninterrupted run's: {equal}; losses "
+              f"straight {[round(h['loss'], 4) for h in hist_a]}, resumed "
+              f"{[round(h['loss'], 4) for h in hist_b]}; [{smi}]")
+        if not equal:
+            raise AssertionError("restart is not bit-exact on the card")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(equal=equal, saves=saves)
+
+
+def run_adafactor(dev, flash_ops, qmatmul_ops, smi):
+    """Phase 18: adafactor at mistral-large's full width, 2 layers."""
+    from repro_torch.models import ShapeSpec
+    from repro_torch.plan import build_plan
+    from repro_torch.train.trainer import batch_to_device
+
+    shape = ShapeSpec("train_4k_b1", TRAIN_SEQ, ADAFACTOR_BATCH, "train")
+    plan = build_plan(ADAFACTOR_ARCH, shape, device=dev,
+                      config_overrides={"n_layers": ADAFACTOR_LAYERS})
+    cfg = plan.cfg
+    if cfg.optimizer != "adafactor":
+        raise AssertionError(f"{cfg.name} trains with {cfg.optimizer}")
+    model, opt_state = plan.init_train_state(seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    state_bytes = sum(t.numel() * t.element_size()
+                      for f in opt_state["f"].values() for t in f.values())
+    stream = train_stream(cfg, ADAFACTOR_BATCH, TRAIN_SEQ)(0)
+    train = plan.executable("train")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_ops.launches = 0
+    qmatmul_ops.launches = 0
+    losses, gnorms, times = [], [], []
+    for _ in range(ADAFACTOR_STEPS):
+        b = batch_to_device(next(stream), model)
+        t = time.perf_counter()
+        metrics = train.fn(model, opt_state, b)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        gnorms.append(float(metrics["grad_norm"]))
+    launches = dict(flash=flash_ops.launches, qmatmul=qmatmul_ops.launches)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses + gnorms)):
+        raise AssertionError(f"non-finite adafactor metrics: {losses}, "
+                             f"{gnorms}")
+    if launches["flash"] or launches["qmatmul"]:
+        raise AssertionError(f"a kernel ran on the training path: "
+                             f"{launches}")
+    print(f"{cfg.name} ({ADAFACTOR_LAYERS} of 88 layers, {n_params:,} "
+          f"parameters) train [{ADAFACTOR_BATCH}, {TRAIN_SEQ}] adafactor: "
+          f"losses {[round(x, 4) for x in losses]}, grad norms "
+          f"{[round(x, 4) for x in gnorms]}, step times (ms, host clock + "
+          f"synchronize) {[round(x, 1) for x in times]}; factored state "
+          f"{state_bytes / 1e6:.2f} MB (adamw's m and v: "
+          f"{8 * n_params / 1e9:.2f} GB); peak memory {peak / 1e9:.2f} GB; "
+          f"flash launches == {launches['flash']}, qmatmul launches == "
+          f"{launches['qmatmul']}; [{smi}]")
+    del model, opt_state, train, plan
+    free_card()
+    return dict(launches=launches, losses=losses, step_ms=times,
+                peak_gb=peak / 1e9, state_bytes=state_bytes)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one card",
@@ -2018,6 +2336,18 @@ def main() -> int:
                        for _, _, f in fams)
     fam_flash = sum(f["prefill"]["launches"] for _, _, f in fams)
 
+    # phases 17-18: training, each model freed before the next
+    free_card()
+    trained = run_training(dev, flash_ops, ops, smi)
+    print(f"phase 17 done at {time.perf_counter() - t_start:.1f} s")
+    ada = run_adafactor(dev, flash_ops, ops, smi)
+    print(f"phase 18 done at {time.perf_counter() - t_start:.1f} s")
+    train_paths = {
+        f"{TRAIN_ARCH} adamw train, {TRAIN_STEPS} steps (phase 17)":
+            trained["launches"],
+        f"{ADAFACTOR_ARCH} ({ADAFACTOR_LAYERS} layers) adafactor train, "
+        f"{ADAFACTOR_STEPS} steps (phase 18)": ada["launches"]}
+
     per = {(r["M"], r["K"], r["N"]): r for r in rows_t + lm_rows}
     # one aie predict of every request configuration, and one quantized
     # yi-6b decode step at batch 4 (the head and 32 down-projections)
@@ -2044,7 +2374,8 @@ def main() -> int:
                 spec_launches - spec_paged,
             **{f"{name} continuous {label} serve (phase {phase})":
                f["launches"][label] for phase, name, f in fams
-               for label in ("paged", "dense")}},
+               for label in ("paged", "dense")},
+            **{path: n["qmatmul"] for path, n in train_paths.items()}},
         "exact": True, "max_abs_err": chk.max_abs_err, "cases": chk.cases,
         "work": "one aie predict of every request configuration and one "
                 "quantized yi-6b decode step at batch 4",
@@ -2057,11 +2388,14 @@ def main() -> int:
     }, {
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_TPU_KERNEL,
-        "launches": pre["launches"] + fam_flash,
+        "launches": pre["launches"] + fam_flash + trained["fwd_flash"],
         "launches_by_path": {
             "yi-6b prefill (phase 6)": pre["launches"],
             **{f"{name} prefill (phase {phase})": f["prefill"]["launches"]
-               for phase, name, f in fams if f["prefill"]["launches"]}},
+               for phase, name, f in fams if f["prefill"]["launches"]},
+            f"{TRAIN_ARCH} prefill of the training batch (phase 17)":
+                trained["fwd_flash"],
+            **{path: n["flash"] for path, n in train_paths.items()}},
         "max_abs_err": fchk.max_abs_err, "cases": fchk.cases,
         "work": f"one call at the path shape [{FLASH_PATH[0]}, "
                 f"{FLASH_PATH[1]}, {FLASH_PATH[3]}] bf16 causal",

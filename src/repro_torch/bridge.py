@@ -10,11 +10,18 @@ reference's on identical weights; ``rwkv_from_arrays``,
 ``hybrid_from_arrays``, ``encdec_from_arrays`` and ``vlm_from_arrays`` do
 the same for the RWKV, hybrid, encoder-decoder and vision-LM trees, and
 ``model_from_arrays`` picks by the config's family.
+
+The reverse map serves training: :func:`leaf_groups` lists each leaf of
+the reference's tree with the port parameters that hold it (the optimizer
+runs over these groups, as the reference's optimizer runs over its
+stacked leaves), :func:`params_to_arrays` gives the reference's stacked
+tree back as numpy arrays, and :func:`load_arrays` copies such a tree into
+a model in place.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -136,13 +143,13 @@ def _unstack(path: str, arr, dims: Sequence[int],
             for idx in np.ndindex(*dims)}
 
 
-def _install_stacked(model: nn.Module, params: Mapping[str, Any],
-                     stacks: Mapping[str, Tuple[Sequence[int], str]],
-                     device: DeviceLike) -> nn.Module:
+def _from_arrays(model: nn.Module, params: Mapping[str, Any],
+                 device: DeviceLike) -> nn.Module:
     """Install a tree into ``model`` (built on the meta device). Every leaf
-    under a top-level key of ``stacks`` is stacked over that key's dims
-    (``(dims, what)``, ``what`` naming them in errors): index ``idx`` of
-    the stack goes to ``key.<idx>...``; other leaves go as they are."""
+    under a top-level key of :func:`param_stacks` is stacked over that
+    key's dims: index ``idx`` of the stack goes to ``key.<idx>...``; other
+    leaves go as they are."""
+    stacks = param_stacks(model)
     got: Dict[str, Any] = {}
     for path, arr in _flatten(params).items():
         top = path.split(".", 1)[0]
@@ -153,12 +160,22 @@ def _install_stacked(model: nn.Module, params: Mapping[str, Any],
     return _install(model, got, resolve_device(device))
 
 
-def _layer_stacked(model: nn.Module, cfg, params: Mapping[str, Any],
-                   device: DeviceLike) -> nn.Module:
-    """Install a tree whose ``blocks`` leaves are stacked ``[L, ...]`` into
-    ``model`` (built on the meta device): block ``l`` takes slice ``l``."""
-    return _install_stacked(
-        model, params, {"blocks": ((cfg.n_layers,), "n_layers")}, device)
+def param_stacks(model: nn.Module) -> Dict[str, Tuple[Tuple[int, ...], str]]:
+    """The reference's stacked top-level keys of ``model``'s family: for
+    each, the stacked dims and their name (for errors). Index ``idx`` of a
+    stacked leaf ``key.rest`` is the port parameter ``key.<idx>.rest``."""
+    cfg = model.cfg
+    if cfg.family == "hybrid":
+        return {"mamba_blocks": ((model.n_groups, cfg.attn_every),
+                                 "(groups, attn_every)")}
+    if cfg.family == "encdec":
+        return {"enc_blocks": ((model.n_enc,), "n_enc_layers"),
+                "dec_blocks": ((cfg.n_layers,), "n_layers")}
+    if cfg.family == "vlm":
+        return {"self_blocks": ((model.n_super, model.self_per_block),
+                                "(n_super, self_per_block)"),
+                "cross_blocks": ((model.n_super,), "n_super")}
+    return {"blocks": ((cfg.n_layers,), "n_layers")}
 
 
 def decoder_lm_from_arrays(cfg, params: Mapping[str, Any],
@@ -175,7 +192,7 @@ def decoder_lm_from_arrays(cfg, params: Mapping[str, Any],
     """
     from repro_torch.models.lm import DecoderLM
 
-    return _layer_stacked(DecoderLM(cfg, device="meta"), cfg, params, device)
+    return _from_arrays(DecoderLM(cfg, device="meta"), params, device)
 
 
 def rwkv_from_arrays(cfg, params: Mapping[str, Any],
@@ -186,7 +203,7 @@ def rwkv_from_arrays(cfg, params: Mapping[str, Any],
     :func:`decoder_lm_from_arrays` takes them."""
     from repro_torch.models.rwkv_model import RWKVModel
 
-    return _layer_stacked(RWKVModel(cfg, device="meta"), cfg, params, device)
+    return _from_arrays(RWKVModel(cfg, device="meta"), params, device)
 
 
 def hybrid_from_arrays(cfg, params: Mapping[str, Any],
@@ -203,10 +220,7 @@ def hybrid_from_arrays(cfg, params: Mapping[str, Any],
     """
     from repro_torch.models.hybrid import HybridModel
 
-    model = HybridModel(cfg, device="meta")
-    return _install_stacked(
-        model, params, {"mamba_blocks": ((model.n_groups, cfg.attn_every),
-                                         "(groups, attn_every)")}, device)
+    return _from_arrays(HybridModel(cfg, device="meta"), params, device)
 
 
 def encdec_from_arrays(cfg, params: Mapping[str, Any],
@@ -218,10 +232,7 @@ def encdec_from_arrays(cfg, params: Mapping[str, Any],
     a missing, extra or misshapen leaf."""
     from repro_torch.models.encdec import EncDecLM
 
-    model = EncDecLM(cfg, device="meta")
-    return _install_stacked(
-        model, params, {"enc_blocks": ((model.n_enc,), "n_enc_layers"),
-                        "dec_blocks": ((cfg.n_layers,), "n_layers")}, device)
+    return _from_arrays(EncDecLM(cfg, device="meta"), params, device)
 
 
 def vlm_from_arrays(cfg, params: Mapping[str, Any],
@@ -234,13 +245,7 @@ def vlm_from_arrays(cfg, params: Mapping[str, Any],
     Raises on a missing, extra or misshapen leaf."""
     from repro_torch.models.vision_lm import VisionLM
 
-    model = VisionLM(cfg, device="meta")
-    n = model.n_super
-    return _install_stacked(
-        model, params,
-        {"self_blocks": ((n, model.self_per_block),
-                         "(n_super, self_per_block)"),
-         "cross_blocks": ((n,), "n_super")}, device)
+    return _from_arrays(VisionLM(cfg, device="meta"), params, device)
 
 
 def model_from_arrays(cfg, params: Mapping[str, Any],
@@ -252,3 +257,123 @@ def model_from_arrays(cfg, params: Mapping[str, Any],
                  "encdec": encdec_from_arrays, "vlm": vlm_from_arrays}
     return by_family.get(cfg.family, decoder_lm_from_arrays)(cfg, params,
                                                              device)
+
+
+# ---------------------------------------------------------------------------
+# The reverse map: port parameters -> the reference's stacked leaves
+# ---------------------------------------------------------------------------
+
+
+class LeafGroup(NamedTuple):
+    """One leaf of the reference's parameter tree and the port parameters
+    that hold it: ``name`` is the leaf's path ("." joined, as
+    :func:`model_from_arrays` reads it), ``members`` the port parameter
+    names in stack order (``np.ndindex(*stack)``), ``stack`` the stacked
+    dims (``()`` for a leaf that is not stacked, with one member)."""
+
+    name: str
+    members: Tuple[str, ...]
+    stack: Tuple[int, ...]
+
+
+def leaf_groups(model: nn.Module) -> List[LeafGroup]:
+    """Every leaf of the reference's tree for ``model``, in the order the
+    model first names its parameters (the inverse of the split that
+    :func:`model_from_arrays` makes)."""
+    stacks = param_stacks(model)
+    found: Dict[str, Dict[Tuple[int, ...], str]] = {}
+    for name, _ in model.named_parameters():
+        top, rest = name.split(".", 1)
+        if top in stacks:
+            n = len(stacks[top][0])
+            parts = rest.split(".")
+            idx = tuple(int(i) for i in parts[:n])
+            leaf = ".".join([top, *parts[n:]])
+        else:
+            idx, leaf = (), name
+        found.setdefault(leaf, {})[idx] = name
+    groups = []
+    for leaf, by_idx in found.items():
+        top = leaf.split(".", 1)[0]
+        dims = tuple(stacks[top][0]) if top in stacks else ()
+        groups.append(LeafGroup(leaf, tuple(by_idx[idx]
+                                            for idx in np.ndindex(*dims)),
+                                dims))
+    return groups
+
+
+def _nest(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    """``{"a.b": x}`` -> ``{"a": {"b": x}}`` (the inverse of
+    :func:`_flatten`)."""
+    out: Dict[str, Any] = {}
+    for path, val in flat.items():
+        *heads, leaf = path.split(".")
+        node = out
+        for h in heads:
+            node = node.setdefault(h, {})
+        node[leaf] = val
+    return out
+
+
+def params_to_arrays(model: nn.Module) -> Dict[str, Any]:
+    """The reference's parameter tree of ``model`` as numpy arrays, each
+    block leaf stacked as the reference stacks it: the inverse of
+    :func:`model_from_arrays` up to dtype. numpy has no bfloat16 of its
+    own, so a bf16 leaf comes out as fp32 (exactly; as the checkpoint
+    stores it)."""
+    params = dict(model.named_parameters())
+    flat = {}
+    for grp in leaf_groups(model):
+        first = params[grp.members[0]]
+        dtype = (np.float32 if first.dtype == torch.bfloat16
+                 else torch.empty((), dtype=first.dtype).numpy().dtype)
+        arr = np.empty(grp.stack + tuple(first.shape), dtype)
+        rows = arr.reshape(-1, *first.shape)
+        for i, name in enumerate(grp.members):
+            t = params[name].detach()
+            rows[i] = (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+        flat[grp.name] = arr
+    return _nest(flat)
+
+
+def params_template(model: nn.Module) -> Dict[str, Any]:
+    """The shapes and dtypes of :func:`params_to_arrays`'s tree as tensors
+    on the meta device (a restore template; nothing is allocated)."""
+    params = dict(model.named_parameters())
+    flat = {}
+    for grp in leaf_groups(model):
+        first = params[grp.members[0]]
+        flat[grp.name] = torch.empty(grp.stack + tuple(first.shape),
+                                     dtype=first.dtype, device="meta")
+    return _nest(flat)
+
+
+@torch.no_grad()
+def load_arrays(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
+    """Copy the reference-layout tree ``tree`` (numpy arrays or tensors,
+    stacked as :func:`params_to_arrays` gives them) into ``model``'s
+    parameters in place, each cast to its parameter's dtype. Raises on a
+    missing, extra or misshapen leaf."""
+    params = dict(model.named_parameters())
+    groups = leaf_groups(model)
+    flat = _flatten(tree)
+    want = {grp.name for grp in groups}
+    if set(flat) != want:
+        raise KeyError(f"parameter tree mismatch: missing "
+                       f"{sorted(want - set(flat))}, unexpected "
+                       f"{sorted(set(flat) - want)}")
+    for grp in groups:
+        first = params[grp.members[0]]
+        arr = flat[grp.name]
+        shape = grp.stack + tuple(first.shape)
+        if tuple(arr.shape) != shape:
+            raise ValueError(f"{grp.name}: shape {tuple(arr.shape)} != "
+                             f"{shape}")
+        src = arr if torch.is_tensor(arr) else _to_tensor(
+            arr, torch.device("cpu"))
+        rows = src.reshape(-1, *first.shape)
+        for i, name in enumerate(grp.members):
+            params[name].copy_(rows[i])
+    if hasattr(model, "reset_quantized"):
+        model.reset_quantized()
+    return model

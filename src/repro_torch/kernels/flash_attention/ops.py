@@ -16,7 +16,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, require_no_grad
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 # Kernel launches since import (or since a caller reset it to 0). Only a
@@ -136,9 +136,12 @@ def flash_attention(
     kernel feeds the probabilities to the PV product as two bf16 parts
     (hi + lo). ``block_q``/``block_k``
     only feed the reference wrapper's argument checks
-    (:func:`_check_blocks`); the CUDA kernel picks its own tiling.
+    (:func:`_check_blocks`); the CUDA kernel picks its own tiling. Raises
+    if an input requires grad while grad is enabled: the kernel has no
+    backward (nor had the reference's).
     """
     global launches
+    require_no_grad("flash_attention", q, k, v)
     BH, Sq, hd = q.shape
     Sk = k.shape[1]
     _check_blocks(Sq, Sk, causal, block_q, block_k)

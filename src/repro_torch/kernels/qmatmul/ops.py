@@ -15,7 +15,7 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, require_no_grad
 from repro_torch.kernels.qmatmul.ref import qlinear_ref
 from repro_torch.quant.srs import TORCH_DTYPES, VALID_ROUNDING
 
@@ -154,8 +154,11 @@ def qlinear(
 
     Bit-exact against :func:`qlinear_ref`. ``block`` and ``acc_blocks``
     are accepted for compatibility with the reference's signature and
-    ignored: the CUDA kernel's tiling comes from :func:`plan`.
+    ignored: the CUDA kernel's tiling comes from :func:`plan`. Raises if
+    an input requires grad while grad is enabled (the kernel has no
+    backward).
     """
+    require_no_grad("qmatmul", x, w, bias)
     if x.device.type == "cpu":
         return qlinear_ref(x, w, bias, shift=shift, relu=relu,
                            out_dtype=out_dtype, rounding=rounding)

@@ -52,6 +52,38 @@ def make_prefill_step(cfg: ArchConfig, shape: ShapeSpec) -> Step:
     return prefill_step
 
 
+def train_inputs(cfg: ArchConfig, shape: ShapeSpec
+                 ) -> Dict[str, Tuple[int, ...]]:
+    """The shapes of a training batch at ``shape``, by name: the prefill
+    inputs (``prefill_inputs``) and ``labels`` shaped as ``tokens`` (the
+    reference's ``input_specs`` for a train shape)."""
+    want = {name: s for name, (s, _) in prefill_inputs(cfg, shape).items()}
+    want["labels"] = want["tokens"]
+    return want
+
+
+def make_train_step(cfg: ArchConfig, shape: ShapeSpec, optimizer) -> Step:
+    """``train(model, opt_state, batch) -> {"loss", "grad_norm"}``: one
+    optimizer step on ``batch`` (``train_inputs`` at this shape), the
+    parameters and ``opt_state`` updated in place (the reference returned
+    new ones), with ``cfg.microbatches`` accumulated microbatches
+    (``train.trainer.train_step``)."""
+    from repro_torch.train.trainer import train_step as step
+
+    want = train_inputs(cfg, shape)
+    nmb = max(1, cfg.microbatches)
+
+    def train_step(model, opt_state, batch: Dict[str, torch.Tensor]):
+        if set(batch) != set(want):
+            raise ValueError(f"train batch has {sorted(batch)}, this step "
+                             f"was built for {sorted(want)}")
+        for name, s in want.items():
+            _expect(name, batch[name], s)
+        return step(model, optimizer, opt_state, batch, microbatches=nmb)
+
+    return train_step
+
+
 def make_serve_step(cfg: ArchConfig, shape: ShapeSpec) -> Step:
     """Decode step: one new token per sequence against resident state.
 

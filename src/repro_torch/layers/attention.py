@@ -19,7 +19,8 @@ import torch
 
 from repro_torch.kernels.flash_attention.ops import accepts as flash_accepts
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.layers.linear import linear
+from repro_torch.layers.linear import bmm_f32, linear
+from repro_torch.layers.remat import remat
 from repro_torch.layers.rope import apply_rope, rope_freqs
 
 NEG_INF = -1e30
@@ -32,6 +33,32 @@ USE_FLASH_KERNEL = True
 Params = Mapping[str, Mapping[str, torch.Tensor]]
 
 
+def _products(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              recorded: bool):
+    """``(scores, pv)``: the two products of the attention, each summed in
+    fp32 with an fp32 output. The serving paths upcast q, k, v and the
+    probabilities; a recorded (training) call runs them as batched
+    :func:`~repro_torch.layers.linear.bmm_f32` products of the operands
+    as they are, which on the card are bf16 tensor-core GEMMs with a
+    backward (the reference's ``preferred_element_type`` products: a bf16
+    product is exact in fp32, so the two differ only in summation order)."""
+    if not recorded:
+        return (torch.einsum("bqhd,bshd->bhqs", q.float(), k.float()),
+                lambda p: torch.einsum("bhqs,bshd->bqhd", p.float(),
+                                       v.float()))
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    scores = bmm_f32(q.transpose(1, 2).reshape(B * H, Sq, hd),
+                     k.permute(0, 2, 3, 1).reshape(B * H, hd, Sk))
+
+    def pv(p: torch.Tensor) -> torch.Tensor:
+        out = bmm_f32(p.reshape(B * H, Sq, Sk),
+                      v.transpose(1, 2).reshape(B * H, Sk, hd))
+        return out.view(B, H, Sq, hd).transpose(1, 2)
+
+    return scores.view(B, H, Sq, Sk), pv
+
+
 def _attend_block(
     q: torch.Tensor,          # [B, Cq, H, hd]
     k: torch.Tensor,          # [B, Sk, H, hd]  (kv heads already repeated)
@@ -40,8 +67,10 @@ def _attend_block(
     kv_valid: Optional[torch.Tensor],   # [B, Sk] / [B, Sq, Sk] bool or None
     causal: bool,
     scale: float,
+    recorded: bool = False,
 ) -> torch.Tensor:
-    scores = torch.einsum("bqhd,bshd->bhqs", q.float(), k.float()) * scale
+    scores, pv = _products(q, k, v, recorded)
+    scores = scores * scale
     Sq, Sk = q.shape[1], k.shape[1]
     if causal:
         qi = q_pos0 + torch.arange(Sq, device=q.device)
@@ -57,8 +86,7 @@ def _attend_block(
     p = torch.softmax(scores, dim=-1)
     # the probabilities are rounded to v's dtype before the PV product, as
     # in the reference; the product itself accumulates in fp32
-    out = torch.einsum("bhqs,bshd->bqhd", p.to(v.dtype).float(), v.float())
-    return out.to(v.dtype)
+    return pv(p.to(v.dtype)).to(v.dtype)
 
 
 def mha(
@@ -80,6 +108,11 @@ def mha(
     and the reference wrapper would accept the blocks; every other call
     runs the plain path, as in the reference, whose switch is off. A head
     dim the kernel is not built for raises on the card.
+
+    A call whose inputs require grad (training) never reaches the kernel,
+    which has no backward: it runs the plain path, as the reference's
+    training does, each query chunk checkpointed (recomputed in the
+    backward pass, as the reference's ``jax.checkpoint`` does).
     """
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
@@ -91,8 +124,10 @@ def mha(
         k = torch.repeat_interleave(k, G, dim=2)          # [B, Sk, H, hd]
         v = torch.repeat_interleave(v, G, dim=2)
 
-    if USE_FLASH_KERNEL and kv_valid is None and Sq == k.shape[1] \
-            and flash_accepts(Sq, Sq, hd, causal):
+    records = torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
+    if USE_FLASH_KERNEL and not records and kv_valid is None \
+            and Sq == k.shape[1] and flash_accepts(Sq, Sq, hd, causal):
         qf = q.transpose(1, 2).reshape(B * H, Sq, hd)
         kf = k.transpose(1, 2).reshape(B * H, -1, hd)
         vf = v.transpose(1, 2).reshape(B * H, -1, hd)
@@ -102,10 +137,11 @@ def mha(
         return o.reshape(B, H, Sq, hd).transpose(1, 2)
 
     if Sq <= q_chunk or Sq % q_chunk:
-        return _attend_block(q, k, v, q_start, kv_valid, causal, scale)
+        return _attend_block(q, k, v, q_start, kv_valid, causal, scale,
+                             records)
     outs = [
-        _attend_block(q[:, i:i + q_chunk], k, v, q_start + i, kv_valid,
-                      causal, scale)
+        remat(_attend_block, q[:, i:i + q_chunk], k, v, q_start + i,
+              kv_valid, causal, scale, records, enabled=records)
         for i in range(0, Sq, q_chunk)
     ]
     return torch.cat(outs, dim=1)

@@ -12,8 +12,46 @@ from typing import Mapping, Optional
 
 import torch
 
+from repro_torch.kernels import require_no_grad
 from repro_torch.kernels.qmatmul.ops import qlinear
 from repro_torch.quant.srs import INT_RANGE, TORCH_DTYPES
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One cuBLAS GEMM (``[M, K] x [K, N]``) or batched GEMM (``[E, M, K]
+    x [E, K, N]``) of bf16 operands with an fp32 output."""
+    fn = torch.mm if a.dim() == 2 else torch.bmm
+    return fn(a, b, out_dtype=torch.float32)
+
+
+class _MatmulF32(torch.autograd.Function):
+    """:func:`_mm_f32` with a backward. torch has no derivative for a
+    product with ``out_dtype``; this one is two GEMMs at the forward's
+    precision: bf16 operands (the incoming fp32 gradient rounded to bf16)
+    and fp32 accumulation, each rounded once to the operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(a, b)
+        return _mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        ga = (torch.matmul(g, b.transpose(-1, -2))
+              if ctx.needs_input_grad[0] else None)
+        gb = (torch.matmul(a.transpose(-1, -2), g)
+              if ctx.needs_input_grad[1] else None)
+        return ga, gb
+
+
+def _product_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """:func:`_mm_f32`, through :class:`_MatmulF32` only while autograd
+    records (serving calls the GEMM directly)."""
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _MatmulF32.apply(a, b)
+    return _mm_f32(a, b)
 
 
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -22,10 +60,11 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     On the card a bf16 product runs as one cuBLAS GEMM with an fp32 output
     (fp32 accumulation, no rounding to bf16); elsewhere both operands are
     upcast first. A bf16 product is exact in fp32, so the two are the same
-    arithmetic up to the order of summation.
+    arithmetic up to the order of summation. Its gradient on the card is
+    :class:`_MatmulF32`'s (bf16 GEMMs), on the CPU the upcast product's.
     """
     if x.is_cuda and x.dtype == w.dtype == torch.bfloat16:
-        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        y = _product_f32(x.reshape(-1, x.shape[-1]), w)
         return y.reshape(*x.shape[:-1], w.shape[-1])
     return torch.matmul(x.float(), w.float())
 
@@ -35,7 +74,7 @@ def bmm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     fp32 out: :func:`matmul_f32` per batch entry (one cuBLAS batched GEMM
     with an fp32 output on the card)."""
     if x.is_cuda and x.dtype == w.dtype == torch.bfloat16:
-        return torch.bmm(x, w, out_dtype=torch.float32)
+        return _product_f32(x, w)
     return torch.bmm(x.float(), w.float())
 
 
@@ -78,8 +117,10 @@ def quantized_linear(
     is not truncated through bf16. ``torch.round`` rounds half to even,
     like the reference's ``jnp.round``. ``wq`` is ``quantize_weight(w,
     w_shift)`` made once by the caller; the bits are the same as
-    quantizing here.
+    quantizing here. Raises if an input requires grad while grad is
+    enabled: rounding and the kernel would drop its gradient.
     """
+    require_no_grad("qmatmul", x, params["w"], params.get("b"))
     lo_x, hi_x = INT_RANGE[x_dtype]
     xq = torch.clamp(torch.round(x.float() * (2.0 ** x_shift)), lo_x, hi_x)
     xq = xq.to(TORCH_DTYPES[x_dtype])

@@ -22,6 +22,7 @@ from repro_torch.layers.linear import (
     quantize_weight,
     quantized_linear,
 )
+from repro_torch.layers.remat import remat
 
 
 @dataclasses.dataclass(frozen=True)
@@ -299,6 +300,35 @@ def decode_block_head_logits(head_w: torch.Tensor, x: torch.Tensor,
             out_dtype="int16", out_float_dtype=torch.float32, wq=head_wq,
         )
     return matmul_f32(x, head_w)
+
+
+def _chunk_ce(head_w: torch.Tensor, x: torch.Tensor,
+              labels: torch.Tensor) -> torch.Tensor:
+    """Summed next-token CE of one chunk: fp32 logits, logsumexp minus the
+    gold logit."""
+    logits = matmul_f32(x, head_w)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.sum(lse - gold)
+
+
+def lm_loss_chunked(head_w: torch.Tensor, x: torch.Tensor,
+                    labels: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+    """Mean next-token cross-entropy (fp32 scalar) of the final hiddens
+    ``x`` [B, S, d] against ``labels`` [B, S] through the head ``head_w``
+    [d, V] (the reference's ``lm_loss_chunked``).
+
+    Computed per sequence chunk, each chunk checkpointed, so the [B, S, V]
+    fp32 logits and their gradient are never resident whole (vocab can be
+    150k+); a sequence the chunk does not divide is one chunk."""
+    B, S, _ = x.shape
+    if S % chunk:
+        chunk = S
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, S, chunk):
+        total = total + remat(_chunk_ce, head_w, x[:, i:i + chunk],
+                              labels[:, i:i + chunk])
+    return total / (B * S)
 
 
 # The reference's initialiser of each leaf, by leaf name: zeros (among

@@ -32,12 +32,14 @@ from repro_torch.layers.embedding import embed
 from repro_torch.layers.linear import matmul_f32
 from repro_torch.layers.mlp import mlp
 from repro_torch.layers.norm import layernorm
+from repro_torch.layers.remat import remat
 from repro_torch.models.base import (
     CROSS_STATE_KEYS,
     PAGED_STATE_KEYS,
     ArchConfig,
     PageView,
     PortedLM,
+    lm_loss_chunked,
 )
 from repro_torch.models.blocks import (
     attention_params,
@@ -107,34 +109,45 @@ class EncDecLM(PortedLM, nn.Module):
 
     # -- prefill --------------------------------------------------------------
 
+    def _enc_layer(self, x: torch.Tensor, blk: EncDecBlock,
+                   positions: torch.Tensor) -> torch.Tensor:
+        x = x + self_attention(blk.attn, layernorm(blk.ln1, x), positions,
+                               causal=False, q_chunk=self.cfg.q_chunk,
+                               **self._heads())
+        return blk.mlp_part(x)
+
+    def _dec_layer(self, x: torch.Tensor, blk: EncDecBlock,
+                   positions: torch.Tensor,
+                   memory: torch.Tensor) -> torch.Tensor:
+        q_chunk = self.cfg.q_chunk
+        x = x + self_attention(blk.attn, layernorm(blk.ln1, x), positions,
+                               causal=True, q_chunk=q_chunk, **self._heads())
+        x = x + cross_attention(blk.xattn, layernorm(blk.ln_x, x), memory,
+                                q_chunk=q_chunk, **self._heads())
+        return blk.mlp_part(x)
+
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
-        """The memory [B, S, d] of frame embeddings [B, S, d]."""
+        """The memory [B, S, d] of frame embeddings [B, S, d]; each layer
+        is checkpointed under ``cfg.remat`` while autograd records."""
         B, S, _ = frames.shape
         x = frames
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
         for blk in self.enc_blocks:
-            x = x + self_attention(blk.attn, layernorm(blk.ln1, x),
-                                   positions, causal=False,
-                                   q_chunk=self.cfg.q_chunk, **self._heads())
-            x = blk.mlp_part(x)
+            x = remat(self._enc_layer, x, blk, positions,
+                      enabled=self.cfg.remat)
         return layernorm(self.ln_enc, x)
 
     def decode_stack(self, tokens: torch.Tensor,
                      memory: torch.Tensor) -> torch.Tensor:
         """The normed decoder hiddens [B, S, d] of ``tokens`` [B, S] over
-        ``memory``."""
+        ``memory``; each layer is checkpointed under ``cfg.remat`` while
+        autograd records."""
         B, S = tokens.shape
         x = embed(self.embed, tokens)
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
-        q_chunk = self.cfg.q_chunk
         for blk in self.dec_blocks:
-            x = x + self_attention(blk.attn, layernorm(blk.ln1, x),
-                                   positions, causal=True, q_chunk=q_chunk,
-                                   **self._heads())
-            x = x + cross_attention(blk.xattn, layernorm(blk.ln_x, x),
-                                    memory, q_chunk=q_chunk,
-                                    **self._heads())
-            x = blk.mlp_part(x)
+            x = remat(self._dec_layer, x, blk, positions, memory,
+                      enabled=self.cfg.remat)
         return layernorm(self.ln_f, x)
 
     @torch.inference_mode()
@@ -145,6 +158,15 @@ class EncDecLM(PortedLM, nn.Module):
         memory = self.encode(batch["frames"])
         x = self.decode_stack(batch["tokens"], memory)
         return matmul_f32(x, self.head["w"])
+
+    def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Training objective (fp32 scalar): the mean next-token
+        cross-entropy of the decoder's ``batch["tokens"]`` [B, S_dec]
+        against ``batch["labels"]``, over ``batch["frames"]`` [B, S, d]
+        (autograd records through it)."""
+        memory = self.encode(batch["frames"])
+        x = self.decode_stack(batch["tokens"], memory)
+        return lm_loss_chunked(self.head["w"], x, batch["labels"])
 
     # -- decode ---------------------------------------------------------------
 

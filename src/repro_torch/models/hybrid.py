@@ -25,6 +25,7 @@ from repro_torch.core.emit import DeviceLike, resolve_device
 from repro_torch.layers.embedding import embed
 from repro_torch.layers.linear import matmul_f32
 from repro_torch.layers.norm import rmsnorm
+from repro_torch.layers.remat import remat
 from repro_torch.layers.ssm import (
     D_CONV,
     mamba2,
@@ -36,6 +37,7 @@ from repro_torch.models.base import (
     ArchConfig,
     PageView,
     PortedLM,
+    lm_loss_chunked,
 )
 from repro_torch.models.blocks import (
     AttnBlock,
@@ -126,18 +128,34 @@ class HybridModel(PortedLM, nn.Module):
 
     # -- prefill --------------------------------------------------------------
 
-    def backbone(self, tokens: torch.Tensor) -> torch.Tensor:
+    def _group(self, x: torch.Tensor, group: nn.ModuleList,
+               positions: torch.Tensor) -> torch.Tensor:
+        """One group's Mamba2 layers, then the shared attention block."""
         cfg = self.cfg
+        for layer in group:
+            x = x + mamba2(layer.mamba, rmsnorm(layer.ln, x),
+                           head_dim=cfg.ssm_head_dim,
+                           d_state=cfg.ssm_state, chunk=cfg.ssd_chunk)
+        x, _ = self.shared_attn(x, positions, cfg)
+        return x
+
+    def backbone(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The normed hiddens [B, S, d] of ``tokens`` [B, S]; each group is
+        checkpointed under ``cfg.remat`` while autograd records."""
         B, S = tokens.shape
         x = embed(self.embed, tokens)
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
         for group in self.mamba_blocks:
-            for layer in group:
-                x = x + mamba2(layer.mamba, rmsnorm(layer.ln, x),
-                               head_dim=cfg.ssm_head_dim,
-                               d_state=cfg.ssm_state, chunk=cfg.ssd_chunk)
-            x, _ = self.shared_attn(x, positions, cfg)
+            x = remat(self._group, x, group, positions,
+                      enabled=self.cfg.remat)
         return rmsnorm(self.ln_f, x)
+
+    def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Training objective (fp32 scalar): the mean next-token
+        cross-entropy of ``batch["tokens"]`` against ``batch["labels"]``
+        (autograd records through it)."""
+        x = self.backbone(batch["tokens"])
+        return lm_loss_chunked(self.head["w"], x, batch["labels"])
 
     @torch.inference_mode()
     def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:

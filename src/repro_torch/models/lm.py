@@ -16,12 +16,14 @@ from repro_torch.core.emit import DeviceLike, resolve_device
 from repro_torch.layers.embedding import embed
 from repro_torch.layers.linear import matmul_f32
 from repro_torch.layers.norm import rmsnorm
+from repro_torch.layers.remat import remat
 from repro_torch.models.base import (
     DRAFT_PREFIX,
     PAGED_STATE_KEYS,
     ArchConfig,
     PageView,
     PortedLM,
+    lm_loss_chunked,
 )
 from repro_torch.models.blocks import AttnBlock, norm_params
 
@@ -69,7 +71,7 @@ class DecoderLM(PortedLM, nn.Module):
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for blk in self.blocks:
-            x, a = blk(x, positions, self.cfg)
+            x, a = remat(blk, x, positions, self.cfg, enabled=self.cfg.remat)
             if a is not None:
                 aux = aux + a
         return rmsnorm(self.ln_f, x), aux
@@ -80,6 +82,16 @@ class DecoderLM(PortedLM, nn.Module):
         [B, S]."""
         x, _ = self.backbone(batch["tokens"])
         return matmul_f32(x, self.head["w"])
+
+    def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Training objective (fp32 scalar): the mean next-token
+        cross-entropy of ``batch["tokens"]`` [B, S] against
+        ``batch["labels"]`` [B, S], plus 0.01 times the MoE aux loss. Not
+        under inference mode: autograd records through it, each block
+        checkpointed under ``cfg.remat``."""
+        x, aux = self.backbone(batch["tokens"])
+        return lm_loss_chunked(self.head["w"], x, batch["labels"]) \
+            + 0.01 * aux
 
     # -- decode ---------------------------------------------------------------
 

@@ -21,8 +21,14 @@ from repro_torch.core.emit import DeviceLike, resolve_device
 from repro_torch.layers.embedding import embed
 from repro_torch.layers.linear import matmul_f32
 from repro_torch.layers.norm import layernorm
+from repro_torch.layers.remat import remat
 from repro_torch.layers.rwkv import rwkv6_channel_mix, rwkv6_time_mix
-from repro_torch.models.base import ArchConfig, PageView, PortedLM
+from repro_torch.models.base import (
+    ArchConfig,
+    PageView,
+    PortedLM,
+    lm_loss_chunked,
+)
 from repro_torch.models.blocks import empty_param, linear_params
 
 
@@ -106,13 +112,26 @@ class RWKVModel(PortedLM, nn.Module):
 
     # -- prefill --------------------------------------------------------------
 
+    def _layer(self, x: torch.Tensor, layer: nn.Module) -> torch.Tensor:
+        x = x + rwkv6_time_mix(layer.mix, layernorm(layer.ln1, x),
+                               head_dim=self.head_dim)
+        return x + rwkv6_channel_mix(layer.mix, layernorm(layer.ln2, x))
+
     def backbone(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The normed hiddens [B, S, d] of ``tokens`` [B, S]; each layer is
+        checkpointed under ``cfg.remat`` while autograd records."""
         x = layernorm(self.ln0, embed(self.embed, tokens))
         for layer in self.blocks:
-            x = x + rwkv6_time_mix(layer.mix, layernorm(layer.ln1, x),
-                                   head_dim=self.head_dim)
-            x = x + rwkv6_channel_mix(layer.mix, layernorm(layer.ln2, x))
+            x = remat(self._layer, x, layer, enabled=self.cfg.remat)
         return layernorm(self.ln_f, x)
+
+    def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Training objective (fp32 scalar): the mean next-token
+        cross-entropy of ``batch["tokens"]`` against ``batch["labels"]``
+        (autograd records through it)."""
+        return lm_loss_chunked(self.head["w"],
+                               self.backbone(batch["tokens"]),
+                               batch["labels"])
 
     @torch.inference_mode()
     def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:

@@ -28,12 +28,14 @@ from repro_torch.core.emit import DeviceLike, resolve_device
 from repro_torch.layers.embedding import embed
 from repro_torch.layers.linear import linear, matmul_f32
 from repro_torch.layers.norm import rmsnorm
+from repro_torch.layers.remat import remat
 from repro_torch.models.base import (
     CROSS_STATE_KEYS,
     PAGED_STATE_KEYS,
     ArchConfig,
     PageView,
     PortedLM,
+    lm_loss_chunked,
 )
 from repro_torch.models.blocks import AttnBlock, CrossBlock, norm_params
 
@@ -93,15 +95,22 @@ class VisionLM(PortedLM, nn.Module):
     def backbone(self, tokens: torch.Tensor,
                  vision: torch.Tensor) -> torch.Tensor:
         """The normed hiddens [B, S, d] of ``tokens`` [B, S] over the patch
-        embeddings ``vision`` [B, M, d]."""
+        embeddings ``vision`` [B, M, d]; each superblock is checkpointed
+        under ``cfg.remat`` while autograd records."""
         B, S = tokens.shape
         x = embed(self.embed, tokens)
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
         for group, cross in zip(self.self_blocks, self.cross_blocks):
-            for blk in group:
-                x, _ = blk(x, positions, self.cfg)
-            x = cross(x, vision, self.cfg)
+            x = remat(self._superblock, x, group, cross, positions, vision,
+                      enabled=self.cfg.remat)
         return rmsnorm(self.ln_f, x)
+
+    def _superblock(self, x: torch.Tensor, group: nn.ModuleList,
+                    cross: CrossBlock, positions: torch.Tensor,
+                    vision: torch.Tensor) -> torch.Tensor:
+        for blk in group:
+            x, _ = blk(x, positions, self.cfg)
+        return cross(x, vision, self.cfg)
 
     @torch.inference_mode()
     def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -109,6 +118,13 @@ class VisionLM(PortedLM, nn.Module):
         [B, S] over ``batch["vision"]`` [B, M, d]."""
         x = self.backbone(batch["tokens"], batch["vision"])
         return matmul_f32(x, self.head["w"])
+
+    def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Training objective (fp32 scalar): the mean next-token
+        cross-entropy of ``batch["tokens"]`` against ``batch["labels"]``
+        over ``batch["vision"]`` (autograd records through it)."""
+        x = self.backbone(batch["tokens"], batch["vision"])
+        return lm_loss_chunked(self.head["w"], x, batch["labels"])
 
     # -- decode ---------------------------------------------------------------
 

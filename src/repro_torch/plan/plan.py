@@ -7,6 +7,10 @@ port, for one card.
     prefill = plan.executable("prefill")   # bound step, cached, counted
     logits = prefill.fn(plan.model, {"tokens": tokens})
 
+    plan = build_plan("yi-6b", shape=ShapeSpec("t", 2048, 2, "train"))
+    model, opt_state = plan.init_train_state(seed=0)
+    metrics = plan.executable("train").fn(model, opt_state, batch)
+
 The plan owns the model (its parameters), the quantization decisions and
 every step function; the serving batcher is a thin consumer.
 """
@@ -23,6 +27,7 @@ from repro_torch.launch.steps import (
     make_prefill_decode_step,
     make_prefill_step,
     make_serve_step,
+    make_train_step,
 )
 from repro_torch.models.base import SHAPES, ArchConfig, ShapeSpec, build_model
 from repro_torch.plan.ir import PlanIR
@@ -38,6 +43,7 @@ class ExecutionPlan:
         self.ir = ir
         self.cache = cache or ExecutableCache()
         self._model = None
+        self._optimizer = None
         self._built_any = False
 
     # -- resolved views -------------------------------------------------------
@@ -66,6 +72,16 @@ class ExecutionPlan:
                                "load_params)")
         return self._model
 
+    @property
+    def optimizer(self):
+        """The config's optimizer (``cfg.optimizer``: adamw or adafactor),
+        made once."""
+        if self._optimizer is None:
+            from repro_torch.optim.optimizers import make_optimizer
+
+            self._optimizer = make_optimizer(self.cfg.optimizer)
+        return self._optimizer
+
     # -- parameters / state ---------------------------------------------------
 
     def init_params(self, seed: int = 0):
@@ -73,6 +89,17 @@ class ExecutionPlan:
         tests); calibrates the quantization shifts. Returns the model."""
         model = build_model(self.cfg, device=self.device).init_params(seed)
         return self._install(model)
+
+    def init_train_state(self, seed: int = 0):
+        """``(model, optimizer state)`` ready for the train step: random
+        parameters (:meth:`init_params`) and the optimizer's state over the
+        reference's leaves (``bridge.leaf_groups``)."""
+        from repro_torch.bridge import leaf_groups
+
+        model = self.init_params(seed)
+        opt_state = self.optimizer.init(dict(model.named_parameters()),
+                                        leaf_groups(model))
+        return model, opt_state
 
     def load_params(self, params):
         """Install a ported model (``DecoderLM``, ``HybridModel``) or the
@@ -155,8 +182,8 @@ class ExecutionPlan:
         )
 
     def executable(self, kind: Optional[str] = None) -> CachedExecutable:
-        """The step for this plan's ShapeSpec ("prefill" or "decode"),
-        built once through the ExecutableCache and counted."""
+        """The step for this plan's ShapeSpec ("train", "prefill" or
+        "decode"), built once through the ExecutableCache and counted."""
         shape = self.shape
         if shape is None:
             raise ValueError(
@@ -166,10 +193,9 @@ class ExecutionPlan:
         builders = {
             "prefill": lambda: make_prefill_step(self.cfg, shape),
             "decode": lambda: make_serve_step(self.cfg, shape),
+            "train": lambda: make_train_step(self.cfg, shape,
+                                             self.optimizer),
         }
-        if kind == "train":
-            raise NotImplementedError(
-                "training is not ported yet (ROADMAP Queue 1 item 1)")
         if kind not in builders:
             raise ValueError(f"unknown executable kind {kind!r}")
         key = self._key(kind, shape.global_batch, shape.seq_len)

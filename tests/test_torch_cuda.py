@@ -597,3 +597,171 @@ def test_flash_at_the_cross_family_prefill_shapes(cuda, BH, S, hd, causal):
     want = attention_ref(q, k, v, causal=causal)
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                rtol=0.0)
+
+
+# ---------------------------------------------------------------------------
+# training on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape_a,shape_b", [((300, 96), (96, 80)),
+                                             ((4, 64, 96), (4, 96, 80))])
+def test_matmul_f32_backward_on_card(cuda, shape_a, shape_b):
+    """The card's fp32-output GEMM (``torch.mm``/``torch.bmm`` with
+    ``out_dtype``) has no derivative in torch; ``matmul_f32`` and
+    ``bmm_f32`` give it one (``layers.linear._MatmulF32``): the forward
+    is the upcast product's up to summation order; each gradient is its
+    formula (the incoming gradient rounded to bf16, fp32 sums) rounded
+    once to bf16, so within one bf16 step of the formula in fp32 (1e-5 of
+    the largest near zero, where summation orders differ), and
+    within 2% of the largest gradient of the CPU's upcast products."""
+    from repro_torch.layers.linear import bmm_f32, matmul_f32
+
+    fn = matmul_f32 if len(shape_a) == 2 else bmm_f32
+    gen = torch.Generator().manual_seed(0)
+    a = torch.randn(shape_a, generator=gen).bfloat16()
+    b = torch.randn(shape_b, generator=gen).bfloat16()
+    gy = torch.randn(*shape_a[:-1], shape_b[-1], generator=gen)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        x = a.to(dev).clone().requires_grad_()
+        w = b.to(dev).clone().requires_grad_()
+        y = fn(x, w)
+        assert y.dtype == torch.float32
+        y.backward(gy.to(dev))
+        assert x.grad.dtype == w.grad.dtype == torch.bfloat16
+        out[dev] = [t.detach().float().cpu() for t in (y, x.grad, w.grad)]
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-5,
+                               atol=1e-4)
+    g16 = gy.bfloat16().float()
+    formula = (g16 @ b.float().transpose(-1, -2),
+               a.float().transpose(-1, -2) @ g16)
+    for got, want, cpu in zip(out["cuda"][1:], formula, out["cpu"][1:]):
+        # one bf16 step of each value; near zero, where the fp32 sums of
+        # two summation orders differ by more, 1e-5 of the largest
+        step = torch.maximum(2.0 ** (torch.floor(torch.log2(
+            want.abs().clamp_min(1e-30))) - 7), 1e-5 * want.abs().max())
+        assert ((got - want).abs() <= step).all()
+        assert (got - cpu).abs().max() <= 0.02 * cpu.abs().max()
+
+
+def test_kernel_wrappers_raise_on_recorded_cuda_inputs(cuda):
+    from repro_torch.layers.linear import quantized_linear
+
+    q, k, v = (torch.randn(4, 64, 64, device=cuda, dtype=torch.bfloat16,
+                           requires_grad=True) for _ in range(3))
+    before = flash_ops.launches
+    with pytest.raises(RuntimeError, match="flash_attention has no backward"):
+        flash_ops.flash_attention(q, k, v)
+    w = torch.randn(64, 32, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="qmatmul has no backward"):
+        quantized_linear({"w": w}, torch.randn(8, 64, device=cuda))
+    assert flash_ops.launches == before
+    with torch.no_grad():
+        flash_ops.flash_attention(q, k, v)
+        quantized_linear({"w": w}, torch.randn(8, 64, device=cuda))
+    assert flash_ops.launches == before + 1
+
+
+_TRAIN_ARCHS = ["yi-6b"] + _FAMILIES[:2] + ["zamba2-2.7b"] + _FAMILIES[2:]
+
+
+def _train_batch(cfg):
+    from repro_torch.data import SyntheticTokens
+
+    b = SyntheticTokens(cfg.vocab, 64, 2, seed=3).batch(0)
+    batch = {k: torch.from_numpy(v) for k, v in b.items()}
+    memory = {"encdec": ("frames", 64), "vlm": ("vision",
+                                                cfg.n_image_tokens)}
+    if cfg.family in memory:
+        name, rows = memory[cfg.family]
+        rng = np.random.default_rng(5)
+        batch[name] = torch.from_numpy(rng.standard_normal(
+            (2, rows, cfg.d_model)).astype(np.float32))
+    return batch
+
+
+@pytest.mark.parametrize("arch", _TRAIN_ARCHS)
+def test_reduced_family_loss_and_grads_on_card_equal_cpu(cuda, arch):
+    """Each family's reduced loss and its gradients on the card (bf16
+    tensor-core products, flash never launched) against the CPU run on the
+    same weights: the loss within rtol 5e-3; all gradients together within
+    0.05 of the CPU's norm, and every leaf within ``max(0.15 |cpu|, 3
+    |cpu_bf16 - cpu_fp32|)``, the CPU's own bf16 rounding noise as the
+    yardstick. The card rounds the fp32 gradient of the attention's
+    products and of the head to bf16 before its backward GEMMs, which the
+    CPU's upcast products do not: that moves a sum with cancellation, like
+    the vision LM's scalar gate, by up to 11% (measured; 7% at most
+    elsewhere, 3% for all leaves together)."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import build_model
+    from repro_torch.train.trainer import model_loss, value_and_grad
+
+    cfg = reduced_config(arch)
+    weights = _family_weights(cfg)
+    batch = _train_batch(cfg)
+    runs = {}
+    for dev, dtype in (("cpu", torch.float32), ("cpu", torch.bfloat16),
+                       ("cuda", torch.bfloat16)):
+        model = build_model(cfg, device=dev, dtype=dtype)
+        model.load_state_dict(weights)
+        b = {k: t.to(dev, dtype) if t.is_floating_point() else t.to(dev)
+             for k, t in batch.items()}
+        before = flash_ops.launches
+        loss, grads = value_and_grad(model_loss, model, b)
+        assert flash_ops.launches == before
+        assert not any(p.requires_grad for p in model.parameters())
+        runs[(dev, dtype)] = (float(loss), {n: g.float().cpu()
+                                            for n, g in grads.items()})
+    (l32, g32), (l16, g16) = runs[("cpu", torch.float32)], runs[
+        ("cpu", torch.bfloat16)]
+    loss, grads = runs[("cuda", torch.bfloat16)]
+    assert np.isfinite(loss)
+    np.testing.assert_allclose(loss, l16, rtol=5e-3)
+    total_err = total_ref = 0.0
+    for name, g in grads.items():
+        noise = float(torch.linalg.vector_norm(g16[name] - g32[name]))
+        err = float(torch.linalg.vector_norm(g - g16[name]))
+        ref = float(torch.linalg.vector_norm(g16[name]))
+        assert err <= max(0.15 * ref, 3 * noise), (name, err, ref, noise)
+        total_err, total_ref = total_err + err ** 2, total_ref + ref ** 2
+    assert total_err <= 0.05 ** 2 * total_ref
+
+
+def test_dense_restart_is_bit_exact_on_card(cuda, tmp_path):
+    """8 steps straight vs a crash at step 5 resumed from the step-4
+    checkpoint, on the card: the parameters are ``torch.equal``."""
+    from repro_torch.bridge import leaf_groups
+    from repro_torch.configs import reduced_config
+    from repro_torch.data import make_train_iterator
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import FailureInjector, Trainer, TrainerConfig
+    from repro_torch.train.fault import InjectedFailure
+    from repro_torch.train.trainer import model_loss
+
+    cfg = reduced_config("yi_6b").with_(vocab=64, n_layers=2, remat=True)
+    opt = adamw(lr=1e-3)
+
+    def fresh():
+        model = build_model(cfg, device=cuda).init_params(0)
+        return model, opt.init(dict(model.named_parameters()),
+                               leaf_groups(model))
+
+    def stream(start):
+        return make_train_iterator(64, 16, 4, seed=7, start_step=start)
+
+    pa, _, _ = Trainer(model_loss, opt, TrainerConfig(
+        steps=8, ckpt_every=100, log_every=100,
+        ckpt_dir=str(tmp_path / "a"))).fit(*fresh(), stream, resume=False)
+    cfg_b = TrainerConfig(steps=8, ckpt_every=4, log_every=100,
+                          ckpt_dir=str(tmp_path / "b"))
+    tb = Trainer(model_loss, opt, cfg_b)
+    tb.injector = FailureInjector(fail_at_steps=(5,))
+    with pytest.raises(InjectedFailure):
+        tb.fit(*fresh(), stream)
+    pb, _, hist = Trainer(model_loss, opt, cfg_b).fit(*fresh(), stream)
+    assert hist[0]["step"] == 4
+    want = dict(pa.named_parameters())
+    for name, p in pb.named_parameters():
+        assert p.is_cuda and torch.equal(p, want[name]), name
