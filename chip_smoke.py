@@ -139,9 +139,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
        the full depth with the plain forward taking the flash forward's
        routing; phase 9's first wave; qmatmul 1 x 4 per micro-run (the
        head; the expert FFNs stay float, as in the reference).
-   14. rwkv6-7b (32 layers, 64 wkv heads of 64): no flash; the prefill of
+   14. rwkv6-7b at full width, cut in depth to 16 of its 32 layers (the
+       run's time limit; 64 wkv heads of 64): no flash; the prefill of
        the first 64 tokens against 64 decode steps over them, printed at
-       full depth beside the noise yardstick (the random stack is chaotic,
+       the cut depth beside the noise yardstick (the random stack is chaotic,
        as zamba2's) and held to ``PREFILL_TOL`` on the model cut to its
        first layer; the device split is profiled on a [2, 256] prefill;
        prompts that share no full page (the prefix cache breaks recurrent
@@ -193,17 +194,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
     the config's lr, without warmup as in the reference, spikes in the
     first steps at this width); flash and qmatmul launched 0 times over the
     steps; the peak memory, the median step time, tokens/s, the profiler
-    split of one step and the share of 989 TFLOP/s that the model FLOPs
-    make of it. Then restart: qwen1.5-4b at full width cut to 2 layers
-    (the full vocab), 6 steps with a checkpoint every 3 and a failure
-    injected at step 4, resumed by a new trainer, on the stream: its
-    losses are printed, and its parameters are
-    ``torch.equal`` to an uninterrupted run's; each checkpoint's size and
-    save time are printed, in a directory under ``build/`` deleted after.
+    split of one step and its roofline line (below). Then restart:
+    qwen1.5-4b at full width cut to 2 layers (the full vocab), 6 steps
+    with a checkpoint every 3 and a failure injected at step 4, resumed
+    by a new trainer, on the stream: its losses are printed, and its
+    parameters are ``torch.equal`` to an uninterrupted run's; each
+    checkpoint's size and save time are printed, in a directory under
+    ``build/`` deleted after.
 18. adafactor at full width: mistral-large-123b cut to 2 of 88 layers (d
     12288, d_ff 28672, vocab 32768: 3.57 B parameters), batch 1 x 4096, 3
     steps: finite losses and grad norms, the factored state's bytes, the
     peak memory and the step time.
+19. The plan smoke CLI at full width, with no model resident:
+    ``python -m repro_torch.plan --arch yi-6b --quantized --warm --out
+    build/plan_yi-6b.json`` as a subprocess (6.06 B random bf16
+    parameters, two waves of the default bucket's batch). It must exit 0,
+    print ``=> OK`` (the second wave built no step and hit the cache) and
+    launch qmatmul; its ``describe()`` is read back.
+
+Roofline lines: the yi-6b prefill (phase 6), the yi-6b quantized paged
+micro-run (phase 9) and the qwen1.5-4b train step (phase 17) each run one
+extra, untimed call under ``repro_torch.launch.step_analysis.analyze_step``
+and print ``roofline <step>: C=... M=... dom=... bound=... measured=...
+(x...) model-FLOPs share ...``: the compute and memory terms over the
+H100's peaks (``launch.roofline``), the measured time from the phase's
+timed calls, and the model FLOPs (``launch.model_flops``) over it against
+989 TFLOP/s. The kernel calls the wrappers report to the analysis must
+equal each wrapper's launches over the call (32 flash in the prefill, 33 x
+4 qmatmul in the micro-run, none in training), and the step's flops must
+be at least its model FLOPs. Every bound is the kernel's analytic work
+(``ops.work`` of each kernel) over ``H100Target``.
 
 The last two lines are the ``kernels`` JSON record and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -234,11 +254,8 @@ import torch  # noqa: E402
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# NVIDIA H100 SXM data sheet, dense: int8 and bf16 tensor-core peaks and
-# the HBM3 rate.
-H100_INT8_OPS = 1979e12
-H100_BF16_OPS = 989e12
-H100_BYTES_PER_S = 3.35e12
+# NVIDIA H100 SXM data sheet, dense rates, 700 W: every bound below
+from repro_torch.core.device import DEFAULT_H100 as H100  # noqa: E402
 
 KERNEL_SOURCE = "src/repro_torch/kernels/qmatmul/csrc/qmatmul.cu"
 TPU_KERNEL = "src/repro/kernels/qmatmul/qmatmul.py:149"
@@ -339,6 +356,10 @@ HYBRID_PROMPT = (42, 48)      # prompt lengths: phase 9's 40 + 2-8
 QWEN_ARCH, RWKV_ARCH = "qwen1.5-4b", "rwkv6-7b"
 MOE_ARCH = "phi3.5-moe-42b-a6.6b"
 MOE_LAYERS = 24
+# rwkv6-7b is cut in depth to 16 of its 32 layers for the run's time limit:
+# its prefill loops over the tokens on the host layer by layer, and its
+# serving waves are host-bound, so its time scales with the layers
+RWKV_LAYERS = 16
 FLASH_PATH_QWEN = (PREFILL_BATCH * 20, PREFILL_SEQ, PREFILL_SEQ, 128, "bf16",
                    True, 0, False)
 # phases 15-16: the cross-attention families. seamless-m4t-large-v2 at its
@@ -387,6 +408,11 @@ TRAIN_LOSS_DROP = 2.0
 # a failure injected at step 4
 RESTART_LAYERS, RESTART_STEPS, RESTART_CKPT_EVERY = 2, 6, 3
 RESTART_FAIL_AT = 4
+# phase 19: the plan smoke CLI at full width, in a process of its own
+PLAN_CLI_ARCH = "yi-6b"
+PLAN_CLI_TIMEOUT_S = 300
+PLAN_CLI_PATH = "yi-6b plan CLI warm check, two waves (phase 19)"
+
 # phase 18: adafactor at mistral-large's full width, cut to 2 of 88 layers
 ADAFACTOR_ARCH, ADAFACTOR_LAYERS = "mistral-large-123b", 2
 ADAFACTOR_BATCH, ADAFACTOR_STEPS = 1, 3
@@ -546,13 +572,16 @@ def profile_predict(model, x, calls=10):
     return dict(profiled_wall_ms=wall, qmatmul_ms=kernel, other_device_ms=other)
 
 
-def bound(M, K, N):
-    ops = 2.0 * M * K * N
-    nbytes = M * K + K * N + 4 * N + M * N  # int8 x, w, y; int32 bias
-    return ops, nbytes
+def bound_ms(work):
+    """A kernel call's least time on the card, in ms, and what bounds it:
+    its analytic work (``ops.work``) over the H100's peaks."""
+    t, by = H100.bound_s(work.ops, work.bytes, work.dtype)
+    return t * 1e3, by
 
 
 def time_shapes(qlinear, qlinear_ref, dev, shapes):
+    from repro_torch.kernels.qmatmul.ops import work
+
     rng = np.random.default_rng(11)
     rows = []
     for (M, K, N) in shapes:
@@ -571,16 +600,15 @@ def time_shapes(qlinear, qlinear_ref, dev, shapes):
                 lib_note = str(e).splitlines()[0]
         else:
             lib_note = "torch._int_mm takes M > 16 only"
-        ops, nbytes = bound(M, K, N)
-        t_ops, t_bytes = ops / H100_INT8_OPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+        wk = work(M, K, N, x.dtype, w.dtype, "int8", bias=True)
+        t, by = bound_ms(wk)
         rows.append(dict(
             M=M, K=K, N=N, ms=ms, plain_ms=plain, library_ms=lib,
-            library_note=lib_note, bound_ms=max(t_ops, t_bytes),
-            bound_by="operations" if t_ops >= t_bytes else "bytes",
-            ops=ops, bytes=nbytes,
+            library_note=lib_note, bound_ms=t, bound_by=by,
+            ops=wk.ops, bytes=wk.bytes,
         ))
         print(f"qmatmul {M}x{K}x{N} int8: kernel {ms:.6f} ms, bound "
-              f"{max(t_ops, t_bytes):.6f} ms ({rows[-1]['bound_by']}), plain "
+              f"{t:.6f} ms ({by}), plain "
               f"{plain:.6f} ms (not a yardstick), torch._int_mm "
               f"{'n/a' if lib is None else f'{lib:.6f} ms'}")
     return rows
@@ -671,15 +699,6 @@ def flash_inputs(BH, Sq, Sk, hd, dtype, dev, seed=0):
     dt = torch.float32 if dtype == "fp32" else torch.bfloat16
     return [torch.randn((BH, S, hd), generator=gen, device=dev).to(dt)
             for S in (Sq, Sk, Sk)]
-
-
-def flash_bound(BH, Sq, Sk, hd, dtype, causal):
-    ops = 4.0 * BH * Sq * Sk * hd / (2 if causal else 1)
-    elem = 4 if dtype == "fp32" else 2
-    nbytes = elem * BH * hd * (2 * Sq + 2 * Sk)      # q, k, v read, o written
-    t_ops, t_bytes = ops / H100_BF16_OPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
-    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
-            ops, nbytes)
 
 
 def lm_tokens(vocab, shape, seed):
@@ -795,6 +814,7 @@ def qmatmul_per_step(cfg):
 def describe_model(cfg, model, arch):
     """One line of the model's widths, its cut and its size."""
     from repro_torch.configs import get_config
+    from repro_torch.launch.model_flops import param_counts
 
     full = get_config(arch)
     n_params = sum(p.numel() for p in model.parameters())
@@ -818,8 +838,12 @@ def describe_model(cfg, model, arch):
                  f"cross block, {cfg.n_image_tokens} image tokens")
     else:
         shape = ", QKV bias" if cfg.qkv_bias else ""
-    cut = (f" (cut in depth from {full.n_layers}: the whole model does not "
-           f"fit one card)" if cfg.n_layers != full.n_layers else "")
+    cut = ""
+    if cfg.n_layers != full.n_layers:
+        fits = param_counts(full)[0] * 2 <= H100.hbm_bytes   # bf16
+        why = ("the run's time limit" if fits
+               else "the whole model does not fit one card")
+        cut = f" (cut in depth from {full.n_layers}: {why})"
     return (f"{cfg.name}: {cfg.n_layers} layers{cut}{shape}, d_model "
             f"{cfg.d_model}, {cfg.n_heads} heads (kv {cfg.n_kv}, head dim "
             f"{cfg.head_dim}), d_ff {cfg.d_ff}, vocab {cfg.vocab}: {n_params}"
@@ -858,12 +882,13 @@ def moe_routing(counts=None, routes=None, replay=None):
 
 
 def run_prefill(dev, flash_ops, attention, arch="yi-6b", overrides=None,
-                reps=(5, 2), profile_seq=None):
+                reps=(5, 2), profile_seq=None, smi=None):
     """Phases 6 and 11-14: a forward at full width (``overrides`` cut its
     depth) through the flash kernel; ``reps`` are the timed calls and the
     profiled ones; with ``profile_seq`` the profiled calls take only the
     first ``profile_seq`` tokens of each sequence, and the idle share is
-    read against their own host-clock median."""
+    read against their own host-clock median. With ``smi`` (the card's
+    name and power limit) also the forward's roofline line."""
     from repro_torch.models.base import ShapeSpec
     from repro_torch.plan import build_plan
 
@@ -958,6 +983,11 @@ def run_prefill(dev, flash_ops, attention, arch="yi-6b", overrides=None,
         lat.append((time.perf_counter() - t) * 1e3)
     out = dict(launches=launches, agreement=agree,
                median_ms=statistics.median(lat), latencies_ms=lat)
+    if smi is not None:
+        out["roofline"] = roofline(
+            f"{cfg.name} prefill [{PREFILL_BATCH}, {PREFILL_SEQ}]",
+            lambda: prefill.fn(model, batch), out["median_ms"], cfg, shape,
+            {"qmatmul": 0, "flash_attention": sites}, smi)
     if profile_seq is None:
         out["split"] = profile_split(lambda: prefill.fn(model, batch),
                                      calls=reps[1])
@@ -1089,7 +1119,8 @@ def recurrent_agreement(model, batch, attention, n=RECURRENT_CHECK):
     finally:
         model.blocks = blocks
     print(f"prefill {model.cfg.name}: the first {n} positions vs {n} decode "
-          f"steps, full depth: mean |diff| {full['mean_abs']:.6f}, max "
+          f"steps, all {len(blocks)} layers: mean |diff| "
+          f"{full['mean_abs']:.6f}, max "
           f"|diff| {full['max_abs']:.6f}, argmax agreement "
           f"{full['argmax_agree']:.6f} at {full['robust_positions']} "
           f"positions with top-2 gap > 0.1 (not held: 2**-8 relative noise "
@@ -1485,8 +1516,9 @@ def serve_wave(batcher, reqs, plain, label, per_step, qmatmul_ops,
     return row
 
 
-def run_continuous(dev, model, plan, qmatmul_ops, flash_ops):
-    """Phase 9: continuous serving at full width, paged then dense."""
+def run_continuous(dev, model, plan, qmatmul_ops, flash_ops, smi):
+    """Phase 9: continuous serving at full width, paged then dense; the
+    paged micro-run's roofline line."""
     from repro_torch.serve import Bucket, BucketPolicy
 
     cfg = plan.cfg
@@ -1524,19 +1556,20 @@ def run_continuous(dev, model, plan, qmatmul_ops, flash_ops):
                      per_step, qmatmul_ops, flash_ops)
     out["launches"]["dense"] = row["launches"]
 
-    out["micro_run"] = {label: time_micro_run(dev, plan, model, batcher)
-                        for label, batcher in (("paged", paged),
-                                               ("dense", dense))}
+    out["micro_run"] = {label: time_micro_run(
+        dev, plan, model, batcher, smi=smi if label == "paged" else None)
+        for label, batcher in (("paged", paged), ("dense", dense))}
     out["waves"], out["loops"] = waves, loops
     return out
 
 
-def time_micro_run(dev, plan, model, batcher, qmatmul=True):
+def time_micro_run(dev, plan, model, batcher, qmatmul=True, smi=None):
     """One micro-run of the batcher's step in steady decode, its state
     resident: every lane active at positions 100-103 (a speculative step
     accepts nothing here; its work per call is the same). Host-clock
     median of 5 calls and the device split of 2, which must show qmatmul
-    time where the step launches it (``qmatmul``)."""
+    time where the step launches it (``qmatmul``); with ``smi`` (the
+    card's name and power limit) also the micro-run's roofline line."""
     k, B, L = CONT_K, CONT_BATCH, CONT_MAX_LEN
     lanes = [torch.full((k, B), -1, dtype=torch.int32, device=dev),
              torch.ones(B, dtype=torch.int32, device=dev), 100,
@@ -1567,6 +1600,16 @@ def time_micro_run(dev, plan, model, batcher, qmatmul=True):
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t) * 1e3)
     split = profile_split(micro_run, calls=2)
+    if smi is not None:
+        from repro_torch.models import ShapeSpec
+
+        cfg = plan.cfg
+        label = "paged" if batcher.paged else "dense"
+        roofline(f"{cfg.name} quantized {label} micro-run [{B} x {L}, "
+                 f"k={k}]", micro_run, statistics.median(lat), cfg,
+                 ShapeSpec("decode", L, B, "decode"),
+                 {"qmatmul": (cfg.n_layers + 1) * k, "flash_attention": 0},
+                 smi, steps=k)
     batcher.pool.release(B, L, state)
     if (split["qmatmul_ms"] > 0) != qmatmul:
         raise AssertionError(f"profiler split of a micro-run disagrees with "
@@ -1811,6 +1854,8 @@ def time_lm_qmatmul(qlinear, qlinear_ref, dev):
     zero-padded to 32 rows (its least M; none at M = 32) as a yardstick for
     the product alone (no SRS); no PyTorch call takes the a16w8 int16
     operands."""
+    from repro_torch.kernels.qmatmul.ops import work
+
     rng = np.random.default_rng(13)
     rows = []
     for (M, K, N, dx, dw, out) in LM_SHAPES:
@@ -1834,19 +1879,16 @@ def time_lm_qmatmul(qlinear, qlinear_ref, dev):
             lib_note = ("torch._int_mm" + (
                 f" with x zero-padded from {M} to 32 rows" if M < 32 else "")
                 + ", int32 out, no SRS")
-        ops = 2.0 * M * K * N
-        nbytes = x.numel() * x.element_size() + K * N + M * N * 2
-        t_ops = ops / H100_INT8_OPS * 1e3
-        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        wk = work(M, K, N, x.dtype, ws[0].dtype, out, bias=False)
+        t, by = bound_ms(wk)
         rows.append(dict(
             M=M, K=K, N=N, x=dx, w=dw, out=out, ms=ms, plain_ms=plain,
             library_ms=lib, library_note=lib_note, l2="cold",
-            weight_copies=n_copies, bound_ms=max(t_ops, t_bytes),
-            bound_by="operations" if t_ops >= t_bytes else "bytes",
-            ops=ops, bytes=nbytes))
+            weight_copies=n_copies, bound_ms=t, bound_by=by,
+            ops=wk.ops, bytes=wk.bytes))
         print(f"qmatmul {M}x{K}x{N} {dx}x{dw}->{out}, L2 cold ({n_copies} "
               f"weight copies): kernel {ms:.6f} ms, bound "
-              f"{max(t_ops, t_bytes):.6f} ms ({rows[-1]['bound_by']}), plain "
+              f"{t:.6f} ms ({by}), plain "
               f"{plain:.6f} ms (not a yardstick), library "
               f"{'n/a' if lib is None else f'{lib:.6f} ms'} ({lib_note})")
         del ws
@@ -1866,24 +1908,62 @@ def time_flash(flash_ops, attention_ref, dev, case):
     q4, k4, v4 = (t.view(1, BH, -1, hd) for t in (q, k, v))
     sdpa = device_ms(lambda: F.scaled_dot_product_attention(
         q4, k4, v4, is_causal=causal), iters=20)
-    bound_ms, bound_by, ops, nbytes = flash_bound(BH, Sq, Sk, hd, dtype,
-                                                  causal)
+    wk = flash_ops.work(BH, Sq, Sk, hd, q.dtype, causal)
+    t, by = bound_ms(wk)
     mode = "causal" if causal else "non-causal"
     print(f"flash [{BH}, {Sq}, {hd}] {dtype} {mode}: kernel {ms:.6f} ms, "
-          f"bound {bound_ms:.6f} ms ({bound_by}), plain {plain:.6f} ms (not a "
+          f"bound {t:.6f} ms ({by}), plain {plain:.6f} ms (not a "
           f"yardstick), SDPA {sdpa:.6f} ms (yardstick, never called by the "
           f"port)")
-    return dict(ms=ms, plain_ms=plain, library_ms=sdpa, bound_ms=bound_ms,
-                bound_by=bound_by, ops=ops, bytes=nbytes)
+    return dict(ms=ms, plain_ms=plain, library_ms=sdpa, bound_ms=t,
+                bound_by=by, ops=wk.ops, bytes=wk.bytes)
 
 
-def model_flops(cfg, n_params, batch, seq):
-    """Training FLOPs of one step as the usual model-FLOPs count: 6 N per
-    token, plus the causal attention's products forward and backward (6 L
-    B H hd S^2); remat's recomputation is not counted."""
-    attention = 6 * cfg.n_layers * batch * cfg.n_heads * cfg.head_dim \
-        * seq * seq
-    return 6 * n_params * batch * seq + attention
+def roofline(name, fn, measured_ms, cfg, shape, want, smi, steps=1):
+    """One extra call of ``fn`` under ``analyze_step`` (not timed: the
+    dispatch mode costs host time), its roofline over the H100 against
+    ``measured_ms`` from the phase's timed calls, and its checks: the
+    kernel calls the wrappers reported equal each wrapper's launches over
+    the call, and those equal ``want``; the step's flops are at least the
+    model FLOPs of ``steps`` steps of ``shape``."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.qmatmul import ops as qmatmul_ops
+    from repro_torch.launch.model_flops import model_flops
+    from repro_torch.launch.roofline import fmt_seconds, roofline_terms
+    from repro_torch.launch.step_analysis import analyze_step
+
+    counters = {"qmatmul": qmatmul_ops, "flash_attention": flash_ops}
+    before = {k: m.launches for k, m in counters.items()}
+    t = time.perf_counter()
+    _, st = analyze_step(fn)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t
+    launched = {k: m.launches - before[k] for k, m in counters.items()}
+    hooked = {k: st.kernel_launches.get(k, 0) for k in counters}
+    if hooked != launched or launched != want \
+            or set(st.kernel_launches) - set(counters):
+        raise AssertionError(f"roofline {name}: the hook counted "
+                             f"{st.kernel_launches}, the wrappers launched "
+                             f"{launched}, expected {want}")
+    mf = model_flops(cfg, shape) * steps
+    if st.flops < mf:
+        raise AssertionError(f"roofline {name}: {st.flops:.6g} flops "
+                             f"dispatched, fewer than the {mf:.6g} model "
+                             f"FLOPs")
+    r = roofline_terms(st, 1, mf, measured_s=measured_ms / 1e3)
+    by_class = {k: float(f"{v:.6g}") for k, v in st.flops_by_dtype.items()}
+    print(f"roofline {name}: C={fmt_seconds(r['compute_s'])} "
+          f"M={fmt_seconds(r['memory_s'])} dom={r['dominant']} "
+          f"bound={fmt_seconds(r['step_time_bound_s'])} "
+          f"measured={fmt_seconds(r['measured_s'])} "
+          f"(x{r['measured_over_bound']:.2f}) model-FLOPs share "
+          f"{r['measured_mfu']:.4f} of {H100.peak_flops_bf16 / 1e12:.0f} "
+          f"TFLOP/s bf16; flops {st.flops:.6g} by class {by_class}, bytes "
+          f"{st.bytes:.6g}, model FLOPs {mf:.6g} (useful share "
+          f"{r['useful_flops_ratio']:.4f}); kernel calls hooked == launched "
+          f"== {launched}; the analysed call took {host_s:.1f} s on the host "
+          f"clock; [{smi}]")
+    return r
 
 
 def forward_ce(logits, labels, chunk=512):
@@ -1971,7 +2051,6 @@ def run_training(dev, flash_ops, qmatmul_ops, smi):
                              f"{losses[-1]}, less than {TRAIN_LOSS_DROP}")
     med = statistics.median(times[1:])
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    flops = model_flops(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
     split = profile_split(lambda: train.fn(model, opt_state, batch),
                           calls=1)
     busy = device_busy_ms(split)
@@ -1984,22 +2063,23 @@ def run_training(dev, flash_ops, qmatmul_ops, smi):
           f"1-{TRAIN_STEPS - 1} (host clock + synchronize), "
           f"{tokens / med * 1e3:.1f} tokens/s; peak memory "
           f"{peak / 1e9:.2f} GB (resident before the steps "
-          f"{resident / 1e9:.2f} GB); model FLOPs 6 N tokens + causal "
-          f"attention = {flops:.4g} per step, {flops / (med / 1e3) / 1e12:.1f}"
-          f" TFLOP/s = {flops / (med / 1e3) / H100_BF16_OPS:.3f} of the "
-          f"989 TFLOP/s bf16 peak; [{smi}]")
+          f"{resident / 1e9:.2f} GB); [{smi}]")
     print(f"{cfg.name} train step profile: device {busy:.1f} ms (other ops; "
           f"flash {split['flash_ms']:.4f}, qmatmul {split['qmatmul_ms']:.4f})"
           f", profiled wall {split['profiled_wall_ms']:.1f} ms, idle share "
           f"{1 - busy / split['profiled_wall_ms']:.3f} of the profiled step "
           f"({1 - busy / med:.3f} of the median); largest device entries "
           f"(ms) {[(k, round(v, 2)) for k, v in split['top']]}; [{smi}]")
+    # one more step, analysed (after every check on the steps above)
+    rl = roofline(f"{cfg.name} adamw train step [{TRAIN_BATCH}, {TRAIN_SEQ}]",
+                  lambda: train.fn(model, opt_state, batch), med, cfg, shape,
+                  {"qmatmul": 0, "flash_attention": 0}, smi)
     del model, opt_state, batch, train, plan
     free_card()
     restart = run_restart(dev, smi)
     return dict(launches=launches, fwd_flash=fwd_flash, losses=losses,
                 step_ms=med, peak_gb=peak / 1e9, split=split,
-                restart=restart)
+                restart=restart, roofline=rl)
 
 
 def run_restart(dev, smi):
@@ -2144,6 +2224,48 @@ def run_adafactor(dev, flash_ops, qmatmul_ops, smi):
                 peak_gb=peak / 1e9, state_bytes=state_bytes)
 
 
+def run_plan_cli(smi):
+    """Phase 19: ``python -m repro_torch.plan --arch yi-6b --quantized
+    --warm --out build/plan_yi-6b.json`` at full width, as a subprocess
+    (stopped at ``PLAN_CLI_TIMEOUT_S``): it must exit 0, print ``=> OK``
+    (the second wave built no step and hit the cache), launch qmatmul, and
+    write a ``describe()`` that ``json`` reads. Returns the kernel launches
+    it printed."""
+    import re
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.model_flops import param_counts
+
+    out = ROOT / "build" / f"plan_{PLAN_CLI_ARCH}.json"
+    cmd = [sys.executable, "-m", "repro_torch.plan", "--arch", PLAN_CLI_ARCH,
+           "--quantized", "--warm", "--out", str(out)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=PLAN_CLI_TIMEOUT_S)
+    wall = time.perf_counter() - t
+    for line in proc.stdout.splitlines():
+        print(f"  plan CLI | {line}")
+    m = re.search(r"qmatmul (\d+), flash (\d+)", proc.stdout)
+    if proc.returncode != 0 or "=> OK" not in proc.stdout or m is None:
+        raise AssertionError(f"plan CLI exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    launched = dict(qmatmul=int(m.group(1)), flash=int(m.group(2)))
+    if launched["qmatmul"] <= 0:
+        raise AssertionError(f"plan CLI launched no qmatmul: {launched}")
+    desc = json.loads(out.read_text())
+    if not desc["quantized"] or desc["cache"]["hits"] < 1:
+        raise AssertionError(f"plan CLI wrote {desc}")
+    total, _ = param_counts(get_config(PLAN_CLI_ARCH))
+    print(f"plan CLI {' '.join(cmd[2:])}: {PLAN_CLI_ARCH} at full width "
+          f"({total:,} parameters), exit 0, => OK, qmatmul launches "
+          f"{launched['qmatmul']} and flash launches {launched['flash']} over "
+          f"the two waves, describe() read back from {out.relative_to(ROOT)}"
+          f" (cache {desc['cache']}); {wall:.1f} s on the host clock, the "
+          f"process's start included; [{smi}]")
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one card",
@@ -2254,7 +2376,7 @@ def main() -> int:
     check_unbuilt_head_dim(dev, flash_ops, attention)
 
     # phase 6: prefill at full width, counted from zero
-    model, pre = run_prefill(dev, flash_ops, attention)
+    model, pre = run_prefill(dev, flash_ops, attention, smi=smi)
     # phase 7: fifo serving at full width, quantized, counted from zero
     srv = run_serve(dev, model, ops)
 
@@ -2282,7 +2404,7 @@ def main() -> int:
             for case in FLASH_PATHS_CROSS]
 
     # phase 9: continuous serving at full width, each run counted from zero
-    cont = run_continuous(dev, model, srv["plan"], ops, flash_ops)
+    cont = run_continuous(dev, model, srv["plan"], ops, flash_ops, smi)
     for label, mr in cont["micro_run"].items():
         print(micro_run_line(f"micro-run yi-6b quantized {label}, batch "
                              f"{CONT_BATCH}, k={CONT_K}", mr))
@@ -2310,6 +2432,7 @@ def main() -> int:
             (12, QWEN_ARCH, {}),
             (13, MOE_ARCH, dict(overrides={"n_layers": MOE_LAYERS})),
             (14, RWKV_ARCH, dict(recurrent=True,
+                                 overrides={"n_layers": RWKV_LAYERS},
                                  prefill_reps=RWKV_PREFILL_REPS,
                                  profile_seq=RWKV_PROFILE_SEQ)),
             (15, SEAMLESS_ARCH, {}),
@@ -2342,6 +2465,10 @@ def main() -> int:
     print(f"phase 17 done at {time.perf_counter() - t_start:.1f} s")
     ada = run_adafactor(dev, flash_ops, ops, smi)
     print(f"phase 18 done at {time.perf_counter() - t_start:.1f} s")
+    # phase 19: the plan CLI at full width, in a process of its own
+    free_card()
+    plan_cli = run_plan_cli(smi)
+    print(f"phase 19 done at {time.perf_counter() - t_start:.1f} s")
     train_paths = {
         f"{TRAIN_ARCH} adamw train, {TRAIN_STEPS} steps (phase 17)":
             trained["launches"],
@@ -2356,13 +2483,13 @@ def main() -> int:
     path += [LM_QMATMUL[0][:3]] + [LM_QMATMUL[1][:3]] * yi_layers
     tot_ops = sum(per[s]["ops"] for s in path)
     tot_bytes = sum(per[s]["bytes"] for s in path)
-    t_ops, t_bytes = tot_ops / H100_INT8_OPS * 1e3, tot_bytes / H100_BYTES_PER_S * 1e3
+    path_bound_s, path_bound_by = H100.bound_s(tot_ops, tot_bytes, "int8")
     libs = [per[s]["library_ms"] for s in path]
     record = {"kernels": [{
         "name": "qmatmul", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": TPU_KERNEL,
         "launches": launches + srv["launches"] + cont_launches
-        + spec_launches + fam_launches,
+        + spec_launches + fam_launches + plan_cli["qmatmul"],
         "launches_by_path": {
             "paper models (phase 3)": launches,
             "yi-6b fifo serve (phase 7)": srv["launches"],
@@ -2375,27 +2502,30 @@ def main() -> int:
             **{f"{name} continuous {label} serve (phase {phase})":
                f["launches"][label] for phase, name, f in fams
                for label in ("paged", "dense")},
-            **{path: n["qmatmul"] for path, n in train_paths.items()}},
+            **{path: n["qmatmul"] for path, n in train_paths.items()},
+            PLAN_CLI_PATH: plan_cli["qmatmul"]},
         "exact": True, "max_abs_err": chk.max_abs_err, "cases": chk.cases,
         "work": "one aie predict of every request configuration and one "
                 "quantized yi-6b decode step at batch 4",
         "ms": sum(per[s]["ms"] for s in path),
         "plain_ms": sum(per[s]["plain_ms"] for s in path),
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_ms": path_bound_s * 1e3,
+        "bound_by": path_bound_by,
         "library_ms": None if None in libs else sum(libs),
         "shapes": rows_t + lm_rows,
     }, {
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_TPU_KERNEL,
-        "launches": pre["launches"] + fam_flash + trained["fwd_flash"],
+        "launches": pre["launches"] + fam_flash + trained["fwd_flash"]
+        + plan_cli["flash"],
         "launches_by_path": {
             "yi-6b prefill (phase 6)": pre["launches"],
             **{f"{name} prefill (phase {phase})": f["prefill"]["launches"]
                for phase, name, f in fams if f["prefill"]["launches"]},
             f"{TRAIN_ARCH} prefill of the training batch (phase 17)":
                 trained["fwd_flash"],
-            **{path: n["flash"] for path, n in train_paths.items()}},
+            **{path: n["flash"] for path, n in train_paths.items()},
+            PLAN_CLI_PATH: plan_cli["flash"]},
         "max_abs_err": fchk.max_abs_err, "cases": fchk.cases,
         "work": f"one call at the path shape [{FLASH_PATH[0]}, "
                 f"{FLASH_PATH[1]}, {FLASH_PATH[3]}] bf16 causal",

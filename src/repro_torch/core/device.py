@@ -1,10 +1,13 @@
-"""Device model of the AMD Versal AIE-ML array.
+"""Device models: the AMD Versal AIE-ML array and the port's GPU target.
 
 ``AIEMLDevice`` is an analytical model of the array (VEK280: 304 compute
 tiles on a 38x8 grid plus a row of memory tiles). It reproduces the paper's
 Table I single-tile ceilings, drives the cycle model behind
 ``EmittedModel.estimated_cycles``, and is the geometry the branch-and-bound
 placer works on. A copy of the AIE part of ``repro.core.device``.
+
+``H100Target`` holds the roofline constants of the card the port runs on,
+in the role the reference's TPU target plays for its roofline.
 """
 
 from __future__ import annotations
@@ -131,4 +134,61 @@ class AIEMLDevice:
         return cycles / self.clock_hz
 
 
+# --------------------------------------------------------------------------
+# NVIDIA H100 roofline target
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class H100Target:
+    """Roofline constants of one NVIDIA H100 SXM5 80 GB, from NVIDIA's H100
+    Tensor Core GPU data sheet: the SXM variant at its 700 W maximum power,
+    dense tensor-core rates (without structured sparsity). A card set below
+    700 W (``nvidia-smi --query-gpu=power.limit``) runs slower under load.
+
+    ``fp32`` is the rate outside the tensor cores (torch's default for
+    fp32 products: TF32 off); ``tf32`` is the tensor cores' fp32 mode."""
+
+    peak_flops_bf16: float = 989e12     # FLOP/s, also fp16
+    peak_flops_fp8: float = 1979e12     # FLOP/s
+    peak_ops_int8: float = 1979e12      # OP/s
+    peak_flops_tf32: float = 495e12     # FLOP/s
+    peak_flops_fp32: float = 67e12      # FLOP/s, CUDA cores
+    hbm_bw: float = 3.35e12             # bytes/s, HBM3
+    hbm_bytes: int = 80 * 10**9
+    nvlink_bw: float = 900e9            # bytes/s per GPU, all links
+    power_w: float = 700.0
+
+    def peak(self, dtype: str = "bf16") -> float:
+        """The peak rate for operands of class ``dtype`` ("bf16", "fp16",
+        "fp8", "int8", "tf32", "fp32")."""
+        rates = {"bf16": self.peak_flops_bf16, "fp16": self.peak_flops_bf16,
+                 "fp8": self.peak_flops_fp8, "int8": self.peak_ops_int8,
+                 "tf32": self.peak_flops_tf32, "fp32": self.peak_flops_fp32}
+        if dtype not in rates:
+            raise ValueError(f"no H100 peak for {dtype!r}; known: "
+                             f"{sorted(rates)}")
+        return rates[dtype]
+
+    def compute_time_s(self, flops: float, dtype: str = "bf16") -> float:
+        return flops / self.peak(dtype)
+
+    def memory_time_s(self, nbytes: float) -> float:
+        return nbytes / self.hbm_bw
+
+    def collective_time_s(self, coll_bytes: float) -> float:
+        # a GPU moves its collective bytes over all its NVLink links
+        return coll_bytes / self.nvlink_bw
+
+    def bound_s(self, ops: float, nbytes: float,
+                dtype: str) -> Tuple[float, str]:
+        """The least time for ``ops`` operations of class ``dtype`` that
+        move ``nbytes``, and what bounds it ("operations" or "bytes")."""
+        t_ops = self.compute_time_s(ops, dtype)
+        t_bytes = self.memory_time_s(nbytes)
+        return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                     else "bytes")
+
+
 DEFAULT_AIE = AIEMLDevice()
+DEFAULT_H100 = H100Target()

@@ -1,9 +1,49 @@
-"""Hand-written Hopper kernels of the port, each beside its plain version."""
+"""Hand-written Hopper kernels of the port, each beside its plain version.
+
+Each wrapper reports the analytic work of every call (:class:`Work`) to
+the step analysis that is active, if any (``launch.step_analysis``): a
+``ctypes`` launch is invisible to a dispatch mode, so the analysis counts
+a kernel by what its wrapper reports, on the card and on the CPU alike.
+"""
+
+import contextlib
+from typing import NamedTuple, Optional
 
 import torch
 
 
-def require_no_grad(kernel: str, *tensors) -> None:
+class Work(NamedTuple):
+    """What one kernel call must do: ``ops`` operations on operands of the
+    class ``dtype`` ("int8", "bf16", "fp32", ...: the peak that bounds
+    them) and ``bytes`` moved, each input read once and each output
+    written once."""
+
+    ops: float
+    bytes: float
+    dtype: str
+
+
+# The step analysis that wrappers report to; None (the hot path) outside
+# ``launch.step_analysis.analyze_step``.
+active_analysis = None
+
+
+@contextlib.contextmanager
+def reported(kernel: str, work: Work):
+    """Report one call of ``kernel`` doing ``work`` to the active analysis
+    when the body returns, and hide the body's own ops from it (the plain
+    version's, or the wrapper's allocations), so that a call counts the
+    same on the CPU as on the card. Costs one check with no analysis."""
+    analysis = active_analysis
+    if analysis is None:
+        yield
+        return
+    with analysis.hidden():
+        yield
+    analysis.kernel(kernel, work)
+
+
+def require_no_grad(kernel: str, *tensors: Optional[torch.Tensor]) -> None:
     """Raise if autograd would record through ``kernel``: a kernel launched
     through ``ctypes`` returns a tensor detached from its inputs, so the
     gradients of inputs that require grad would silently be lost. Training

@@ -16,7 +16,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build, require_no_grad
+from repro_torch.kernels import Work, build, reported, require_no_grad
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 # Kernel launches since import (or since a caller reset it to 0). Only a
@@ -38,6 +38,17 @@ _ARGTYPES = [
 
 def _ceil_to(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def work(BH: int, Sq: int, Sk: int, hd: int, dtype: torch.dtype,
+         causal: bool) -> Work:
+    """The analytic work of one call: the two products, 4 BH Sq Sk hd
+    operations (half of them under a causal mask) in q's dtype, and q, k,
+    v read once and o written once."""
+    ops = 4.0 * BH * Sq * Sk * hd / (2 if causal else 1)
+    nbytes = dtype.itemsize * BH * hd * (2 * Sq + 2 * Sk)
+    return Work(ops, float(nbytes),
+                "bf16" if dtype == torch.bfloat16 else "fp32")
 
 
 def _library() -> ctypes.CDLL:
@@ -146,19 +157,22 @@ def flash_attention(
     Sk = k.shape[1]
     _check_blocks(Sq, Sk, causal, block_q, block_k)
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, q_start=q_start)
+        with reported("flash_attention",
+                      work(BH, Sq, Sk, hd, q.dtype, causal)):
+            return attention_ref(q, k, v, causal=causal, q_start=q_start)
     _check_kernel_args(q, k, v, q_start)
-    o = torch.empty_like(q)
     if BH == 0 or Sq == 0:
-        return o
-    lib = _library()
-    with torch.cuda.device(q.device):
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            BH, Sq, Sk, hd, _DTYPES[q.dtype], int(causal), int(q_start),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"flash kernel launch failed: CUDA error {err}")
-    launches += 1
+        return torch.empty_like(q)
+    with reported("flash_attention", work(BH, Sq, Sk, hd, q.dtype, causal)):
+        o = torch.empty_like(q)
+        lib = _library()
+        with torch.cuda.device(q.device):
+            err = lib.flash_attention_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                BH, Sq, Sk, hd, _DTYPES[q.dtype], int(causal), int(q_start),
+                torch.cuda.current_stream(q.device).cuda_stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"flash kernel launch failed: CUDA error {err}")
+        launches += 1
     return o

@@ -15,7 +15,7 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build, require_no_grad
+from repro_torch.kernels import Work, build, reported, require_no_grad
 from repro_torch.kernels.qmatmul.ref import qlinear_ref
 from repro_torch.quant.srs import TORCH_DTYPES, VALID_ROUNDING
 
@@ -64,6 +64,23 @@ class Plan(NamedTuple):
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def work(M: int, K: int, N: int, x_dtype: torch.dtype,
+         w_dtype: torch.dtype, out_dtype: str, bias: bool) -> Work:
+    """The analytic work of one (M, K) x (K, N) call: 2 M K N int8
+    tensor-core operations (int16 operands are split into bytes on the
+    same units), x, w and the int32 bias read once and y written once, each
+    at its own width."""
+    nbytes = (M * K * x_dtype.itemsize + K * N * w_dtype.itemsize
+              + (4 * N if bias else 0)
+              + M * N * TORCH_DTYPES[out_dtype].itemsize)
+    return Work(2.0 * M * K * N, float(nbytes), "int8")
+
+
+def _work_of(x: torch.Tensor, w: torch.Tensor, bias, out_dtype: str) -> Work:
+    return work(x.shape[0], x.shape[1], w.shape[1], x.dtype, w.dtype,
+                out_dtype, bias is not None)
 
 
 def plan(M: int, K: int, N: int, sms: int) -> Plan:
@@ -160,8 +177,9 @@ def qlinear(
     """
     require_no_grad("qmatmul", x, w, bias)
     if x.device.type == "cpu":
-        return qlinear_ref(x, w, bias, shift=shift, relu=relu,
-                           out_dtype=out_dtype, rounding=rounding)
+        with reported("qmatmul", _work_of(x, w, bias, out_dtype)):
+            return qlinear_ref(x, w, bias, shift=shift, relu=relu,
+                               out_dtype=out_dtype, rounding=rounding)
     return qlinear_planned(x, w, bias, None, shift=shift, relu=relu,
                            out_dtype=out_dtype, rounding=rounding)
 
@@ -187,21 +205,23 @@ def qlinear_planned(x: torch.Tensor, w: torch.Tensor,
     if _cdiv(M, p.block_m) > _MAX_GRID_YZ or p.splits > _MAX_GRID_YZ:
         raise ValueError(f"qmatmul kernel grid too large for M={M} under "
                          f"{p}")
-    ws = (torch.empty((p.splits, M, N), dtype=torch.int32, device=x.device)
-          if p.splits > 1 else None)
-    lib = _library()
-    with torch.cuda.device(x.device):
-        err = lib.qmatmul_launch(
-            x.data_ptr(), w.data_ptr(),
-            None if bias is None else bias.data_ptr(), y.data_ptr(),
-            None if ws is None else ws.data_ptr(),
-            M, K, N,
-            _BITS[x.dtype], _BITS[w.dtype], _BITS[y.dtype],
-            shift, VALID_ROUNDING.index(rounding), int(relu),
-            p.block_m, p.splits, p.k_per_split,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"qmatmul kernel launch failed: CUDA error {err}")
-    launches += 1
+    with reported("qmatmul", _work_of(x, w, bias, out_dtype)):
+        ws = (torch.empty((p.splits, M, N), dtype=torch.int32,
+                          device=x.device) if p.splits > 1 else None)
+        lib = _library()
+        with torch.cuda.device(x.device):
+            err = lib.qmatmul_launch(
+                x.data_ptr(), w.data_ptr(),
+                None if bias is None else bias.data_ptr(), y.data_ptr(),
+                None if ws is None else ws.data_ptr(),
+                M, K, N,
+                _BITS[x.dtype], _BITS[w.dtype], _BITS[y.dtype],
+                shift, VALID_ROUNDING.index(rounding), int(relu),
+                p.block_m, p.splits, p.k_per_split,
+                torch.cuda.current_stream(x.device).cuda_stream,
+            )
+        if err != 0:
+            raise RuntimeError(
+                f"qmatmul kernel launch failed: CUDA error {err}")
+        launches += 1
     return y

@@ -14,8 +14,11 @@ serving entry points never see a grad-requiring parameter. On the card a
 step also runs with ``torch.use_deterministic_algorithms`` (warn only), so
 that the same step repeats bit for bit; cuBLAS honours it only with
 ``CUBLAS_WORKSPACE_CONFIG`` set before its first use, which the train CLI
-and ``chip_smoke.py`` do. The MoE's combine (``index_add_``) adds with
-atomics on the card, so the MoE is not held to a bit-exact restart.
+and ``chip_smoke.py`` do. Under that mode the MoE's scatters (the
+``index_add_`` combine, the backward of its gathers) run torch's
+deterministic implementations instead of atomic adds, so a dense and an
+MoE restart on the card are both ``torch.equal`` to an uninterrupted run,
+with no determinism warning (``tests/test_torch_cuda.py``).
 """
 
 from __future__ import annotations

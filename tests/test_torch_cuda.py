@@ -728,11 +728,16 @@ def test_reduced_family_loss_and_grads_on_card_equal_cpu(cuda, arch):
     assert total_err <= 0.05 ** 2 * total_ref
 
 
-def test_dense_restart_is_bit_exact_on_card(cuda, tmp_path):
-    """8 steps straight vs a crash at step 5 resumed from the step-4
-    checkpoint, on the card: the parameters are ``torch.equal``."""
+def _restart_is_bit_exact(cfg, tmp_path, monkeypatch):
+    """8 steps of ``cfg`` straight vs a crash at step 5 resumed from the
+    step-4 checkpoint, on the card: the parameters are ``torch.equal``.
+    Every warning that ``torch.use_deterministic_algorithms`` raises inside
+    a step (an op without a deterministic implementation, or cuBLAS
+    without its workspace setting, which callers set as the train CLI
+    does) is an error."""
+    import warnings
+
     from repro_torch.bridge import leaf_groups
-    from repro_torch.configs import reduced_config
     from repro_torch.data import make_train_iterator
     from repro_torch.models import build_model
     from repro_torch.optim import adamw
@@ -740,28 +745,52 @@ def test_dense_restart_is_bit_exact_on_card(cuda, tmp_path):
     from repro_torch.train.fault import InjectedFailure
     from repro_torch.train.trainer import model_loss
 
-    cfg = reduced_config("yi_6b").with_(vocab=64, n_layers=2, remat=True)
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     opt = adamw(lr=1e-3)
 
     def fresh():
-        model = build_model(cfg, device=cuda).init_params(0)
+        model = build_model(cfg, device="cuda").init_params(0)
         return model, opt.init(dict(model.named_parameters()),
                                leaf_groups(model))
 
     def stream(start):
-        return make_train_iterator(64, 16, 4, seed=7, start_step=start)
+        return make_train_iterator(cfg.vocab, 16, 4, seed=7,
+                                   start_step=start)
 
-    pa, _, _ = Trainer(model_loss, opt, TrainerConfig(
-        steps=8, ckpt_every=100, log_every=100,
-        ckpt_dir=str(tmp_path / "a"))).fit(*fresh(), stream, resume=False)
-    cfg_b = TrainerConfig(steps=8, ckpt_every=4, log_every=100,
-                          ckpt_dir=str(tmp_path / "b"))
-    tb = Trainer(model_loss, opt, cfg_b)
-    tb.injector = FailureInjector(fail_at_steps=(5,))
-    with pytest.raises(InjectedFailure):
-        tb.fit(*fresh(), stream)
-    pb, _, hist = Trainer(model_loss, opt, cfg_b).fit(*fresh(), stream)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=".*deterministic")
+        pa, _, _ = Trainer(model_loss, opt, TrainerConfig(
+            steps=8, ckpt_every=100, log_every=100,
+            ckpt_dir=str(tmp_path / "a"))).fit(*fresh(), stream,
+                                               resume=False)
+        cfg_b = TrainerConfig(steps=8, ckpt_every=4, log_every=100,
+                              ckpt_dir=str(tmp_path / "b"))
+        tb = Trainer(model_loss, opt, cfg_b)
+        tb.injector = FailureInjector(fail_at_steps=(5,))
+        with pytest.raises(InjectedFailure):
+            tb.fit(*fresh(), stream)
+        pb, _, hist = Trainer(model_loss, opt, cfg_b).fit(*fresh(), stream)
     assert hist[0]["step"] == 4
     want = dict(pa.named_parameters())
     for name, p in pb.named_parameters():
         assert p.is_cuda and torch.equal(p, want[name]), name
+
+
+def test_dense_restart_is_bit_exact_on_card(cuda, tmp_path, monkeypatch):
+    from repro_torch.configs import reduced_config
+
+    _restart_is_bit_exact(
+        reduced_config("yi_6b").with_(vocab=64, n_layers=2, remat=True),
+        tmp_path, monkeypatch)
+
+
+def test_moe_restart_is_bit_exact_on_card(cuda, tmp_path, monkeypatch):
+    """The reduced phi3.5-moe (routing, the sorted dispatch, the expert
+    products and the ``index_add_`` combine, which the deterministic mode
+    runs in a fixed order) restarts bit for bit."""
+    from repro_torch.configs import reduced_config
+
+    cfg = reduced_config("phi3_5_moe_42b")
+    assert cfg.family == "moe" and cfg.n_experts > cfg.top_k
+    _restart_is_bit_exact(cfg.with_(vocab=64, n_layers=2, remat=True),
+                          tmp_path, monkeypatch)

@@ -141,7 +141,9 @@ def test_import_loads_neither_jax_nor_reference():
         ".".join(p.relative_to(src).with_suffix("").parts).removesuffix(
             ".__init__")
         for p in (src / "repro_torch").rglob("*.py"))
-    assert "repro_torch.launch.serve" in modules
+    assert {"repro_torch.launch.serve", "repro_torch.plan.__main__",
+            "repro_torch.launch.model_flops", "repro_torch.launch.roofline",
+            "repro_torch.launch.step_analysis"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"
