@@ -47,7 +47,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    identical tokens, the second must hit the step cache with no new build,
    and the qmatmul counter must grow by exactly 33 per decode step (the LM
    head and 32 down-projections). Phase 2 also holds qmatmul at the two LM
-   shapes.
+   shapes. The plan's mesh passes run first (every plan resolves its 1x1
+   mesh). Then, for each sharding mode, ``plan.iter_shard_params`` places
+   the resident model on the 1x1 ``cuda`` DeviceMesh (a world-1 nccl
+   group) one parameter at a time, each DTensor dropped after its check:
+   ``to_local()`` must be ``torch.equal`` to the parameter and its
+   placements those of ``pspec_to_placements`` over the leaf's
+   PartitionSpec in ``describe()["params"]`` (stacked dims dropped); one
+   ``mesh 1x1 (nccl, world 1) <mode>: ...`` line per mode.
 8. Timing of the LM path: median prefill latency, decode tokens/s, the
    device time of a prefill and of a decode step split into flash, qmatmul
    and other ops (torch.profiler; the kernel's share must be non-zero, so a
@@ -210,7 +217,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
     build/plan_yi-6b.json`` as a subprocess (6.06 B random bf16
     parameters, two waves of the default bucket's batch). It must exit 0,
     print ``=> OK`` (the second wave built no step and hit the cache) and
-    launch qmatmul; its ``describe()`` is read back.
+    launch qmatmul; its ``describe()`` is read back: ``mesh_axes`` must be
+    ``{"data": 1, "model": 1}`` and ``params`` must hold one key per leaf
+    of ``bridge.leaf_groups``. Then ``--data 2`` and ``--multi-pod`` (in
+    parallel) must exit non-zero within ``MESH_CLI_TIMEOUT_S``, printing
+    ``need 2 devices, have 1`` and ``need 512 devices, have 1``.
 
 Roofline lines: the yi-6b prefill (phase 6), the yi-6b quantized paged
 micro-run (phase 9) and the qwen1.5-4b train step (phase 17) each run one
@@ -412,6 +423,10 @@ RESTART_FAIL_AT = 4
 PLAN_CLI_ARCH = "yi-6b"
 PLAN_CLI_TIMEOUT_S = 300
 PLAN_CLI_PATH = "yi-6b plan CLI warm check, two waves (phase 19)"
+# phase 19: mesh flags larger than the world must fail this fast
+MESH_CLI_TIMEOUT_S = 30
+MESH_CLI_FAILS = ((["--data", "2"], "need 2 devices, have 1"),
+                  (["--multi-pod"], "need 512 devices, have 1"))
 
 # phase 18: adafactor at mistral-large's full width, cut to 2 of 88 layers
 ADAFACTOR_ARCH, ADAFACTOR_LAYERS = "mistral-large-123b", 2
@@ -2224,6 +2239,91 @@ def run_adafactor(dev, flash_ops, qmatmul_ops, smi):
                 peak_gb=peak / 1e9, state_bytes=state_bytes)
 
 
+def run_mesh_placement(dev, model, smi):
+    """Phase 7, continued: the resident yi-6b placed on the plan's 1x1
+    ``cuda`` DeviceMesh in each sharding mode, one parameter at a time
+    (each DTensor dropped after its check, so the peak grows by at most
+    the largest parameter): ``to_local()`` must be ``torch.equal`` to the
+    parameter, and the placements those ``pspec_to_placements`` gives the
+    leaf's PartitionSpec in ``describe()["params"]``, stacked dims
+    dropped."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.bridge import leaf_groups
+    from repro_torch.dist.sharding import (
+        MODES,
+        PartitionSpec,
+        pspec_to_placements,
+    )
+    from repro_torch.models.base import leaf_key
+    from repro_torch.plan import build_plan
+
+    groups = leaf_groups(model)
+    leaf_of = {m: grp for grp in groups for m in grp.members}
+    params = dict(model.named_parameters())
+    largest = max(p.numel() * p.element_size() for p in params.values())
+    for mode in MODES:
+        t = time.perf_counter()
+        plan = build_plan(model.cfg.name, None, mode=mode, device=dev)
+        want = {key: pspec_to_placements(PartitionSpec.from_str(text),
+                                         plan.mesh)
+                for key, text in plan.describe()["params"].items()}
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        placed = 0
+        for name, dt in plan.iter_shard_params(model):
+            grp = leaf_of[name]
+            k = len(grp.stack)
+            expect = [Shard(p.dim - k) if isinstance(p, Shard) else p
+                      for p in want[leaf_key(grp.name)]]
+            if list(dt.placements) != expect:
+                raise AssertionError(f"{mode} {name}: placements "
+                                     f"{dt.placements} != {expect}")
+            if not torch.equal(dt.to_local(), params[name]):
+                raise AssertionError(f"{mode} {name}: to_local() differs")
+            placed += 1
+            del dt
+        torch.cuda.synchronize()
+        grew = torch.cuda.max_memory_allocated() - base
+        if placed != len(params):
+            raise AssertionError(f"{mode}: placed {placed} of "
+                                 f"{len(params)} parameters")
+        print(f"mesh 1x1 ({dist.get_backend()}, world "
+              f"{dist.get_world_size()}) {mode}: {len(groups)} leaves, "
+              f"{placed} tensors placed, all equal, "
+              f"{time.perf_counter() - t:.1f} s; peak +{grew / 1e9:.3f} GB "
+              f"(largest parameter {largest / 1e9:.3f} GB) [{smi}]")
+
+
+def run_mesh_flags(env):
+    """Phase 19, continued: the plan CLI with a mesh larger than the world
+    (one process, one card) must exit non-zero with the reference's count
+    error, before any model is allocated. Both run side by side."""
+    procs = []
+    try:
+        for flags, want in MESH_CLI_FAILS:
+            cmd = [sys.executable, "-m", "repro_torch.plan", "--arch",
+                   PLAN_CLI_ARCH, *flags]
+            procs.append((flags, want, time.perf_counter(), subprocess.Popen(
+                cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)))
+        for flags, want, t, proc in procs:
+            out, err = proc.communicate(timeout=MESH_CLI_TIMEOUT_S)
+            wall = time.perf_counter() - t
+            if proc.returncode == 0 or want not in out + err:
+                raise AssertionError(f"plan CLI {' '.join(flags)} exited "
+                                     f"{proc.returncode}: {err[-2000:]}")
+            print(f"plan CLI {' '.join(flags)}: exit {proc.returncode} in "
+                  f"{wall:.1f} s, {want!r}")
+    finally:
+        for *_, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
 def run_plan_cli(smi):
     """Phase 19: ``python -m repro_torch.plan --arch yi-6b --quantized
     --warm --out build/plan_yi-6b.json`` at full width, as a subprocess
@@ -2256,6 +2356,15 @@ def run_plan_cli(smi):
     desc = json.loads(out.read_text())
     if not desc["quantized"] or desc["cache"]["hits"] < 1:
         raise AssertionError(f"plan CLI wrote {desc}")
+    from repro_torch.bridge import leaf_groups
+    from repro_torch.models.base import build_model, leaf_key
+
+    leaves = {leaf_key(g.name) for g in leaf_groups(build_model(
+        get_config(PLAN_CLI_ARCH), device="meta"))}
+    if desc["mesh_axes"] != {"data": 1, "model": 1} or \
+            set(desc["params"]) != leaves:
+        raise AssertionError(f"plan CLI mesh_axes {desc['mesh_axes']}, "
+                             f"params {sorted(desc['params'])}")
     total, _ = param_counts(get_config(PLAN_CLI_ARCH))
     print(f"plan CLI {' '.join(cmd[2:])}: {PLAN_CLI_ARCH} at full width "
           f"({total:,} parameters), exit 0, => OK, qmatmul launches "
@@ -2263,6 +2372,10 @@ def run_plan_cli(smi):
           f"the two waves, describe() read back from {out.relative_to(ROOT)}"
           f" (cache {desc['cache']}); {wall:.1f} s on the host clock, the "
           f"process's start included; [{smi}]")
+    print(f"plan CLI describe(): mesh {desc['mesh']} axes "
+          f"{desc['mesh_axes']}, {len(desc['params'])} leaf PartitionSpecs "
+          f"(one per leaf group)")
+    run_mesh_flags(env)
     return launched
 
 
@@ -2379,6 +2492,7 @@ def main() -> int:
     model, pre = run_prefill(dev, flash_ops, attention, smi=smi)
     # phase 7: fifo serving at full width, quantized, counted from zero
     srv = run_serve(dev, model, ops)
+    run_mesh_placement(dev, model, smi)
 
     # phase 8: timing of the LM path; a kernel renamed out of the
     # profiler's match would show as zero here
@@ -2539,6 +2653,9 @@ def main() -> int:
                                    (FLASH_PATH_QWEN, fl_q),
                                    *zip(FLASH_PATHS_CROSS, fl_x))],
     }]}
+    # the world-1 group phase 7 started for its mesh
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(smi)

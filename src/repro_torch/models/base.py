@@ -3,10 +3,12 @@ decode LM head and the family dispatch.
 
 A jax-free copy of ``repro.models.base`` for every family of the
 reference (the dense and MoE decoder LMs, RWKV, the hybrid, the
-encoder-decoder and the vision LM). There is no ``ParamSpec``:
-a model is an ``nn.Module`` that owns its parameters, in the reference's
-layout (weights ``(d_in, d_out)``, so ``x @ w`` needs no transpose), and
-:class:`PortedLM` holds what the families share.
+encoder-decoder and the vision LM). A model is an ``nn.Module`` that owns
+its parameters, in the reference's layout (weights ``(d_in, d_out)``, so
+``x @ w`` needs no transpose), and :class:`PortedLM` holds what the
+families share. ``PortedLM.param_specs()`` gives the reference's
+``ParamSpec`` of every leaf (stacked shape, logical axes, dtype), read
+off the parameters through :func:`leaf_logical`.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core.emit import DeviceLike
+from repro_torch.dist.sharding import ParamSpec
 from repro_torch.layers.linear import (
     matmul_f32,
     quantize_weight,
@@ -364,6 +367,78 @@ def init_kind(name: str, shape: Tuple[int, ...]) -> Tuple[str, float]:
     return "normal", fan_in ** -0.5
 
 
+# The reference's logical axes of each leaf (``repro.layers.*_spec``),
+# without its stacked dims. A linear's "w" and "b" take them from the
+# linear's role in its module (``linear_axes`` / ``bias_axes``); every
+# other leaf is listed by (module, name), norms aside.
+LINEAR_ROLES = {
+    "attn": {"wq": "col", "wk": "kv", "wv": "kv", "wo": "row"},
+    "xattn": {"wq": "col", "wk": "kv", "wv": "kv", "wo": "row"},
+    "ffn": {"gate": "col", "up": "col", "down": "row"},
+    "shared": {"gate": "col", "up": "col", "down": "row"},
+    "mamba": {"wz": "col", "wx": "col", "wBC": "replicated",
+              "wdt": "replicated", "out": "row"},
+    "mix": {"wr": "col", "wk": "col", "wv": "col", "wg": "col",
+            "w_lora_a": "replicated", "w_lora_b": "col", "wo": "row",
+            "ck": "col", "cv": "row", "cr": "replicated"},
+}
+LEAF_AXES = {
+    ("embed", "table"): ("vocab", "embed"),
+    ("head", "w"): ("embed", "vocab"),
+    ("moe", "router"): (None, None),
+    **{("moe", w): ("experts", "fsdp", None)
+       for w in ("w_up", "w_down", "w_gate")},
+    ("mamba", "conv_w"): ("conv_k", "mlp"),
+    ("mamba", "conv_b"): ("mlp",),
+    ("mamba", "norm_scale"): ("mlp",),
+    **{("mamba", v): (None,) for v in ("dt_bias", "A_log", "D")},
+    **{("mix", v): ("q_heads", None) for v in ("u", "ln_x_scale",
+                                                "ln_x_bias")},
+    **{("mix", v): (None,) for v in ("mu_r", "mu_k", "mu_v", "mu_w",
+                                     "mu_g", "mu_ck", "mu_cr", "w0")},
+}
+
+
+def linear_axes(role: str, mode: str) -> Tuple[Optional[str], ...]:
+    """Logical axes of a (d_in, d_out) weight for a sharding mode."""
+    if mode == "cascade":
+        return ("cascade_in", "cascade_out")
+    return {"col": ("fsdp", "col_out"), "row": ("row_in", "fsdp"),
+            "replicated": (None, None), "kv": ("fsdp", None)}[role]
+
+
+def bias_axes(role: str, mode: str) -> Tuple[Optional[str], ...]:
+    """Logical axes of a linear's (d_out,) bias for a sharding mode."""
+    if mode == "cascade":
+        return ("cascade_out",)
+    return ("col_out",) if role == "col" else (None,)
+
+
+def leaf_logical(path: str, mode: str) -> Tuple[Optional[str], ...]:
+    """The reference's logical axes of the unstacked leaf ``path`` ("."
+    joined, as ``bridge.leaf_groups`` names it) under ``mode``; raises
+    ``KeyError`` for a leaf the table does not know."""
+    parts = path.split(".")
+    parent, leaf = (parts[-2] if len(parts) > 1 else ""), parts[-1]
+    if (parent, leaf) in LEAF_AXES:
+        return LEAF_AXES[(parent, leaf)]
+    if leaf in ("w", "b") and len(parts) > 2:
+        role = LINEAR_ROLES.get(parts[-3], {}).get(parent)
+        if role is not None:
+            return (linear_axes if leaf == "w" else bias_axes)(role, mode)
+    if parent.startswith("ln") and leaf in ("scale", "bias"):
+        return (None,)
+    if leaf == "gate":                  # the vision LM's tanh gate, (1,)
+        return (None,)
+    raise KeyError(f"no logical axes for the leaf {path!r}")
+
+
+def leaf_key(path: str) -> str:
+    """The reference's ``jax.tree_util.keystr`` of the leaf ``path``:
+    ``"blocks.attn.wq.w"`` -> ``"['blocks']['attn']['wq']['w']"``."""
+    return "".join(f"['{p}']" for p in path.split("."))
+
+
 class PortedLM:
     """What the port's LM families share, mixed into their ``nn.Module``:
     seeded initialisation, the int8 copies of the LM head and of every
@@ -384,6 +459,30 @@ class PortedLM:
     def ffn_blocks(self):
         """The blocks whose SwiGLU FFN the quantized plan runs a16w8."""
         return []
+
+    def param_specs(self) -> Dict[str, ParamSpec]:
+        """``{leaf key: ParamSpec}`` for every leaf of the reference's tree
+        (``bridge.leaf_groups``), keyed by :func:`leaf_key`: the stacked
+        shape (the group's stack, then the member's shape), the
+        reference's logical axes under ``cfg.sharding_mode`` (one
+        "layers" per stacked dim), the parameter's dtype and initialiser.
+        Reads shapes only, so a model on the ``meta`` device serves."""
+        from repro_torch.bridge import leaf_groups
+
+        params = dict(self.named_parameters())
+        out = {}
+        for grp in leaf_groups(self):
+            p = params[grp.members[0]]
+            shape = grp.stack + tuple(p.shape)
+            logical = (("layers",) * len(grp.stack)
+                       + leaf_logical(grp.name, self.cfg.sharding_mode))
+            init, _ = init_kind(grp.name, shape)
+            # the reference's MoE weights carry their fan-in std explicitly
+            scale = (1.0 / (shape[-2] ** 0.5)
+                     if grp.name.split(".")[-2] == "moe" else None)
+            out[leaf_key(grp.name)] = ParamSpec(shape, logical, p.dtype,
+                                                init, scale)
+        return out
 
     def mlp_down_weights(self):
         """Every ``ffn.down`` weight the a16w8 path quantizes (the

@@ -18,7 +18,8 @@ from typing import Optional, Tuple
 
 import torch
 
-MULTI_GPU_ITEM = "ROADMAP Queue 1 item 2, multi-GPU"
+MULTI_GPU_ITEM = ("ROADMAP Queue 1 item 2, multi-GPU part 2 (sharded "
+                  "execution)")
 
 
 def compress_int8(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

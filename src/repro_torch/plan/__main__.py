@@ -1,6 +1,6 @@
-"""Plan smoke CLI: build an ExecutionPlan on one card, dump ``describe()``,
-optionally prove that a warm plan builds no new step (the reference's
-``python -m repro.plan``).
+"""Plan smoke CLI: build an ExecutionPlan, dump ``describe()``, optionally
+prove that a warm plan builds no new step (the reference's ``python -m
+repro.plan``).
 
     PYTHONPATH=src python -m repro_torch.plan --arch yi-6b --debug --warm \\
         --device cpu --out plan_yi6b.json
@@ -14,10 +14,14 @@ unless the second wave builds no step (``builds`` of the plan's
 and flash launches of the two waves. ``--out`` writes ``describe()``
 after the warm check, so the cache counters are included.
 
-Runs on the card unless ``--device cpu``. ``--mode`` is recorded in the
-plan; on one card nothing is sharded. ``--data``, ``--model``,
-``--multi-pod`` and ``--stages`` other than their defaults shard over
-several cards: multi-GPU is not ported, and they raise.
+Runs on the card unless ``--device cpu``. The plan resolves every
+parameter's PartitionSpec under ``--mode`` on its mesh: ``--data D
+--model M`` is a D x M debug mesh (default 1 x 1, with ``--debug`` or
+without: the port runs on one card), ``--multi-pod`` the 2x16x16
+production mesh. A mesh larger than the world exits non-zero with
+``RuntimeError: need N devices, have M`` before any model is allocated.
+``--stages S`` runs the PlaceStages pass; on a mesh whose data axis
+cannot hold S stages it records the reference's fallback.
 """
 
 from __future__ import annotations
@@ -29,8 +33,7 @@ import sys
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.qmatmul import ops as qmatmul_ops
 from repro_torch.models import SHAPES
-from repro_torch.optim.compression import MULTI_GPU_ITEM
-from repro_torch.plan import build_plan
+from repro_torch.plan import MeshSpec, build_plan
 from repro_torch.serve import DecodeRequest
 
 
@@ -59,7 +62,7 @@ def warm_check(plan) -> bool:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
-        description="Build an ExecutionPlan on one card, dump its pass "
+        description="Build an ExecutionPlan, dump its pass "
                     "decisions, and optionally assert that a warm plan "
                     "builds no new step.")
     ap.add_argument("--arch", required=True)
@@ -68,18 +71,17 @@ def main(argv=None) -> int:
                          "per-bucket shapes)")
     ap.add_argument("--mode", default=None,
                     choices=["cascade", "megatron", "megatron_sp"],
-                    help="sharding mode, recorded (one card: nothing "
-                         "sharded)")
+                    help="sharding mode (default: the config's)")
     ap.add_argument("--debug", action="store_true",
                     help="reduced config")
     ap.add_argument("--data", type=int, default=1,
-                    help="data-axis extent (multi-GPU: not ported)")
+                    help="debug mesh data-axis extent")
     ap.add_argument("--model", type=int, default=1,
-                    help="model-axis extent (multi-GPU: not ported)")
+                    help="debug mesh model-axis extent")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="multi-pod mesh (multi-GPU: not ported)")
+                    help="the 2x16x16 production mesh")
     ap.add_argument("--stages", type=int, default=1,
-                    help="pipeline stages (multi-GPU: not ported)")
+                    help="pipeline stages (the PlaceStages pass)")
     ap.add_argument("--quantized", action="store_true")
     ap.add_argument("--warm", action="store_true",
                     help="assert zero new builds on the second wave")
@@ -89,22 +91,17 @@ def main(argv=None) -> int:
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)
 
-    for flag, given in (("--data", args.data != 1),
-                        ("--model", args.model != 1),
-                        ("--multi-pod", args.multi_pod),
-                        ("--stages", args.stages != 1)):
-        if given:
-            raise NotImplementedError(
-                f"{flag} shards over several cards: {MULTI_GPU_ITEM}")
-    plan = build_plan(args.arch, args.shape, quantized=args.quantized,
-                      debug=args.debug, device=args.device,
-                      config_overrides=({"sharding_mode": args.mode}
-                                        if args.mode else None))
+    mesh_spec = (MeshSpec.production(multi_pod=True) if args.multi_pod
+                 else MeshSpec.debug(args.data, args.model))
+    plan = build_plan(args.arch, args.shape, mode=args.mode,
+                      mesh_spec=mesh_spec, quantized=args.quantized,
+                      pipeline_stages=args.stages, debug=args.debug,
+                      device=args.device)
 
     d = plan.describe()
     print(f"{d['arch']} ({d['family']}) mode={d['mode']} "
-          f"device={d['device']} (one card, nothing sharded) stages=1 "
-          f"quantized={d['quantized']}")
+          f"device={d['device']} mesh={d['mesh']} "
+          f"stages={d['pipeline_stages']} quantized={d['quantized']}")
     for p in d["passes"]:
         entry = {k: v for k, v in p.items() if k != "pass"}
         print(f"  {p['pass']}: {entry}")

@@ -1,12 +1,29 @@
-"""The compile-plan passes for one card:
+"""The compile-plan pass pipeline:
 
-    ResolveDevice -> Quantize -> Compile
+    ResolveDevice -> ResolveMesh -> ResolveSharding -> PlaceStages
+        -> Quantize -> Compile
 
-The reference's mesh, sharding-rule and stage-placement passes have no
-counterpart on one card (ROADMAP Queue 1 item 2). Every decision is
-recorded in the :class:`~repro_torch.plan.ir.PlanIR`.
+The last five are the reference's passes, with the same entries in
+``ir.decisions``; ResolveDevice comes first because the port's plan runs
+on one device. Every decision is recorded in the
+:class:`~repro_torch.plan.ir.PlanIR`.
 
 * **ResolveDevice** picks the card (or the device the caller names).
+* **ResolveMesh** resolves the mesh's axis names and sizes from the
+  :class:`~repro_torch.plan.ir.MeshSpec` and checks them against the
+  world (``launch.mesh.check_world``: a mesh larger than the world raises
+  and is never shrunk). A documented divergence: the reference builds its
+  jax ``Mesh`` here, which costs nothing there; the port builds its
+  ``DeviceMesh`` (and so a process group) only when the plan must place a
+  tensor (``ExecutionPlan.param_placements`` / ``shard_params``), so a
+  plan that serves or trains on one card starts no process group.
+* **ResolveSharding** builds the mode's rule table and records the fitted
+  PartitionSpec of every parameter leaf (``PortedLM.param_specs`` of the
+  model built on the ``meta`` device), from the axis sizes alone.
+* **PlaceStages** splits the stacked layers into contiguous pipeline
+  stages and assigns them to mesh row bands with the paper's Eq. 2
+  branch-and-bound (``core.placement.Placer``); the placement turns into
+  a ``layers -> data`` rule override and the specs are resolved again.
 * **Quantize** decides the int8 serving paths: the decode LM head (always,
   when ``quantized``) and the MLP down-projection with per-tensor
   calibrated shifts (``calibrate_mlp_shifts`` refines the defaults once
@@ -17,14 +34,19 @@ recorded in the :class:`~repro_torch.plan.ir.PlanIR`.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import functools
+import math
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.emit import resolve_device
-from repro_torch.models.base import HEAD_SHIFTS, ArchConfig
-from repro_torch.plan.ir import PlanIR
+from repro_torch.core.placement import Block, PlacementResult, Placer
+from repro_torch.dist.sharding import ParamSpec, rules_for_mode, spec_to_pspec
+from repro_torch.launch.mesh import check_world
+from repro_torch.models.base import HEAD_SHIFTS, ArchConfig, build_model
+from repro_torch.plan.ir import PlanIR, StagePlacement
 from repro_torch.quant.qtensor import choose_shift
 
 # Families whose blocks carry a dense SwiGLU "ffn" whose down-projection
@@ -32,7 +54,8 @@ from repro_torch.quant.qtensor import choose_shift
 MLP_QUANT_FAMILIES = ("dense", "vlm", "hybrid")
 
 __all__ = ["HEAD_SHIFTS", "MLP_QUANT_FAMILIES", "PLAN_PIPELINE",
-           "calibrate_mlp_shifts"]
+           "assign_stage_slices", "calibrate_mlp_shifts", "param_specs",
+           "stack_depth"]
 
 
 def resolve_device_pass(ir: PlanIR) -> PlanIR:
@@ -41,6 +64,149 @@ def resolve_device_pass(ir: PlanIR) -> PlanIR:
         dev = torch.device("cuda", torch.cuda.current_device())
     ir.device = dev
     ir.record("ResolveDevice", device=str(dev))
+    return ir
+
+
+@functools.lru_cache(maxsize=64)
+def param_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
+    """``{leaf key: ParamSpec}`` of ``cfg``'s model, read off the model
+    built on the ``meta`` device (nothing is allocated, so kimi-k2's
+    ~1 T parameters resolve anywhere). Cached per config: treat the
+    result as read-only."""
+    return build_model(cfg, device="meta").param_specs()
+
+
+def stack_depth(cfg: ArchConfig) -> int:
+    """Length of the outer stacked-layers dim (the stage-splittable one).
+
+    The hybrid family stacks its layers in groups (one shared attention
+    block per group), so its stackable depth is the group count.
+    """
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    return cfg.n_layers
+
+
+def _resolve_param_pspecs(ir: PlanIR) -> Dict[str, str]:
+    """Flat {leaf key: PartitionSpec text} under the current rule table."""
+    return {key: str(spec_to_pspec(spec, ir.axes, ir.rules))
+            for key, spec in param_specs(ir.cfg).items()}
+
+
+# ---------------------------------------------------------------------------
+# ResolveMesh
+# ---------------------------------------------------------------------------
+
+
+def resolve_mesh_pass(ir: PlanIR) -> PlanIR:
+    ir.axes = ir.mesh_spec.axis_sizes()
+    n = math.prod(ir.axes.values())
+    if ir.mesh_spec.kind == "explicit":
+        ir.mesh = ir.mesh_spec.mesh
+    else:
+        check_world(n)
+    ir.record("ResolveMesh", mesh=ir.mesh_spec.label(), axes=dict(ir.axes),
+              devices=n)
+    return ir
+
+
+# ---------------------------------------------------------------------------
+# ResolveSharding
+# ---------------------------------------------------------------------------
+
+
+def resolve_sharding_pass(ir: PlanIR) -> PlanIR:
+    ir.rules = rules_for_mode(ir.mode)
+    ir.param_pspecs = _resolve_param_pspecs(ir)
+    sharded = {k: v for k, v in ir.param_pspecs.items()
+               if v != "PartitionSpec()"}
+    ir.record("ResolveSharding", mode=ir.mode,
+              params=len(ir.param_pspecs), sharded=len(sharded))
+    return ir
+
+
+# ---------------------------------------------------------------------------
+# PlaceStages
+# ---------------------------------------------------------------------------
+
+
+def assign_stage_slices(
+    n_cols: int,
+    n_rows: int,
+    n_stages: int,
+    *,
+    lam: float = 1.0,
+    mu: float = 0.05,
+    beam: Optional[int] = 64,
+) -> PlacementResult:
+    """Assign ``n_stages`` equal stage blocks to mesh slices with the
+    paper's Eq. 2 branch-and-bound. The grid is the (model, data) device
+    plane: columns = model axis, rows = data axis; each stage is a
+    full-width block ``n_rows // n_stages`` rows tall. ``beam=None`` is
+    exact.
+
+    The blocks are identical full-width rectangles, so every feasible
+    placement is a permutation of the same row bands: the search
+    certifies that the banded layout is Eq. 2-optimal and records its
+    cost and expansions in the plan.
+    """
+    if n_rows % n_stages:
+        raise ValueError(
+            f"{n_stages} stages do not divide the {n_rows}-row axis")
+    height = n_rows // n_stages
+    blocks = [Block(n_cols, height, f"stage{i}") for i in range(n_stages)]
+    placer = Placer(n_cols, n_rows, lam=lam, mu=mu, beam=beam)
+    return placer.branch_and_bound(blocks, start=(0, 0))
+
+
+def place_stages_pass(ir: PlanIR) -> PlanIR:
+    S = ir.pipeline_stages
+    depth = stack_depth(ir.cfg)
+    if S < 1:
+        raise ValueError(f"pipeline_stages must be >= 1, got {S}")
+    if S > depth:
+        raise ValueError(
+            f"pipeline_stages={S} exceeds the layer stack depth {depth}")
+    if S == 1:
+        ir.record("PlaceStages", stages=1, stage_axis=None,
+                  note="single stage: layers axis replicated")
+        return ir
+
+    n_rows = ir.axes.get("data", 1)
+    n_cols = ir.axes.get("model", 1)
+    fallback = None
+    if n_rows < S or n_rows % S:
+        fallback = (f"data axis ({n_rows} rows) cannot hold {S} equal "
+                    "stages")
+    elif depth % n_rows:
+        fallback = (f"layer stack ({depth}) does not divide over the "
+                    f"data axis ({n_rows} rows)")
+    if fallback:
+        ir.record("PlaceStages", stages=S, stage_axis=None,
+                  fallback=fallback)
+        return ir
+
+    result = assign_stage_slices(n_cols, n_rows, S)
+    # the stacked layer dim shards across the axis in row order, so stage
+    # k (layers [k*per, (k+1)*per)) goes to the k-th row band; the sort
+    # also canonicalizes any cost-tied permutation the search returns
+    order = sorted(range(S), key=lambda i: result.positions[i].row)
+    per = depth // S
+    ir.stages = [
+        StagePlacement(k, k * per, per, p.col, p.row, p.width, p.height)
+        for k, p in ((k, result.positions[i]) for k, i in enumerate(order))
+    ]
+    ir.stage_axis = "data"
+    ir.placement_cost = result.cost
+    ir.placement_method = result.method
+    ir.rules = ir.rules.replace(layers="data")
+    ir.param_pspecs = _resolve_param_pspecs(ir)
+    ir.record(
+        "PlaceStages", stages=S, stage_axis="data",
+        cost=round(result.cost, 4), method=result.method,
+        expanded=result.nodes_expanded,
+        slices=[s.as_dict() for s in ir.stages],
+    )
     return ir
 
 
@@ -171,6 +337,9 @@ def compile_pass(ir: PlanIR) -> PlanIR:
 
 PLAN_PIPELINE: List[Tuple[str, object]] = [
     ("ResolveDevice", resolve_device_pass),
+    ("ResolveMesh", resolve_mesh_pass),
+    ("ResolveSharding", resolve_sharding_pass),
+    ("PlaceStages", place_stages_pass),
     ("Quantize", quantize_pass),
     ("Compile", compile_pass),
 ]

@@ -1,5 +1,5 @@
 """``build_plan`` and :class:`ExecutionPlan`: the one execution API of the
-port, for one card.
+port.
 
     from repro_torch.plan import build_plan
     plan = build_plan("yi-6b", shape=ShapeSpec("p", 2048, 2, "prefill"))
@@ -12,7 +12,19 @@ port, for one card.
     metrics = plan.executable("train").fn(model, opt_state, batch)
 
 The plan owns the model (its parameters), the quantization decisions and
-every step function; the serving batcher is a thin consumer.
+every step function; the serving batcher is a thin consumer. It also
+decides where each parameter lives on a device mesh (``mesh_spec``: the
+rule table of ``mode``, each leaf's PartitionSpec, the pipeline stages),
+and places parameters there as DTensors on request:
+
+    plan = build_plan("yi-6b", mode="megatron", device="cpu")
+    plan.describe()["params"]              # {leaf key: PartitionSpec text}
+    plan.param_placements()                # {leaf key: DTensor placements}
+    plan.shard_params(model)               # {parameter name: DTensor}
+
+Executing a model whose parameters are sharded over several ranks is
+not ported yet (ROADMAP Queue 1 item 2, part 2): the steps run on the
+plan's device.
 """
 
 from __future__ import annotations
@@ -22,6 +34,7 @@ from typing import Any, Dict, Optional, Union
 import torch
 
 from repro_torch.core.emit import DeviceLike
+from repro_torch.dist.sharding import PartitionSpec, pspec_to_placements
 from repro_torch.launch.steps import (
     make_masked_decode_step,
     make_prefill_decode_step,
@@ -30,14 +43,19 @@ from repro_torch.launch.steps import (
     make_train_step,
 )
 from repro_torch.models.base import SHAPES, ArchConfig, ShapeSpec, build_model
-from repro_torch.plan.ir import PlanIR
-from repro_torch.plan.passes import PLAN_PIPELINE, calibrate_mlp_shifts
+from repro_torch.optim.compression import MULTI_GPU_ITEM
+from repro_torch.plan.ir import MeshSpec, PlanIR
+from repro_torch.plan.passes import (
+    PLAN_PIPELINE,
+    calibrate_mlp_shifts,
+    param_specs,
+)
 from repro_torch.serve.cache import CachedExecutable, CacheKey, ExecutableCache
 
 
 class ExecutionPlan:
-    """A resolved execution recipe: device + quantization + the step
-    catalogue. Construct via :func:`build_plan`."""
+    """A resolved execution recipe: device + mesh + rules + stages +
+    quantization + the step catalogue. Construct via :func:`build_plan`."""
 
     def __init__(self, ir: PlanIR, cache: Optional[ExecutableCache] = None):
         self.ir = ir
@@ -55,6 +73,19 @@ class ExecutionPlan:
     @property
     def device(self) -> torch.device:
         return self.ir.device
+
+    @property
+    def mesh(self):
+        """The plan's mesh, built on first use: a ``DeviceMesh`` of the
+        plan's device type (starting the process group it needs), or the
+        mesh an explicit ``MeshSpec`` wraps."""
+        if self.ir.mesh is None:
+            self.ir.mesh = self.ir.mesh_spec.build(device=self.device)
+        return self.ir.mesh
+
+    @property
+    def rules(self):
+        return self.ir.rules
 
     @property
     def mode(self) -> str:
@@ -81,6 +112,64 @@ class ExecutionPlan:
 
             self._optimizer = make_optimizer(self.cfg.optimizer)
         return self._optimizer
+
+    # -- parameters / placement ----------------------------------------------
+
+    def param_specs(self):
+        """``{leaf key: ParamSpec}`` of the plan's model (built on the
+        ``meta`` device)."""
+        return dict(param_specs(self.cfg))
+
+    def param_placements(self) -> Dict[str, list]:
+        """``{leaf key: DTensor placements}`` on :attr:`mesh`, one per mesh
+        dim, from the PartitionSpecs the plan recorded."""
+        mesh = self.mesh
+        return {key: pspec_to_placements(PartitionSpec.from_str(text), mesh)
+                for key, text in self.ir.param_pspecs.items()}
+
+    def iter_shard_params(self, model=None):
+        """Yield ``(parameter name, DTensor)`` for every parameter of
+        ``model`` (default: the plan's), one at a time, each placed on
+        :attr:`mesh` by ``distribute_tensor``. A member of a stacked leaf
+        takes the leaf's placements with the stacked dims dropped; a leaf
+        whose stacked dim is sharded (``layers -> data`` after
+        PlaceStages) raises ``NotImplementedError``: which member goes to
+        which row band is not ported yet."""
+        from torch.distributed.device_mesh import DeviceMesh
+        from torch.distributed.tensor import Shard, distribute_tensor
+
+        from repro_torch.bridge import leaf_groups
+        from repro_torch.models.base import leaf_key
+
+        model = self.model if model is None else model
+        mesh = self.mesh
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"shard_params needs a torch DeviceMesh, the "
+                            f"plan's mesh is {type(mesh).__name__}")
+        if model.device.type != mesh.device_type:
+            raise ValueError(f"model on {model.device}, mesh on "
+                             f"{mesh.device_type}")
+        placements = self.param_placements()
+        params = dict(model.named_parameters())
+        for grp in leaf_groups(model):
+            nstack = len(grp.stack)
+            member = []
+            for p in placements[leaf_key(grp.name)]:
+                if isinstance(p, Shard):
+                    if p.dim < nstack:
+                        raise NotImplementedError(
+                            f"{grp.name}: its stacked dim is sharded "
+                            f"({self.ir.stage_axis}); placing the members "
+                            f"of a staged leaf is {MULTI_GPU_ITEM}")
+                    p = Shard(p.dim - nstack)
+                member.append(p)
+            for name in grp.members:
+                yield name, distribute_tensor(params[name].detach(), mesh,
+                                              member)
+
+    def shard_params(self, model=None) -> Dict[str, Any]:
+        """``{parameter name: DTensor}``: :meth:`iter_shard_params` at once."""
+        return dict(self.iter_shard_params(model))
 
     # -- parameters / state ---------------------------------------------------
 
@@ -176,8 +265,9 @@ class ExecutionPlan:
         return CacheKey(
             arch=self.cfg.name, kind=kind, batch=batch, max_len=max_len,
             prefill_len=prefill_len, mode=self.mode,
-            mesh_axes=CacheKey.device_signature(self.device),
-            quantized=self.cfg.quantized, qsig=self._qsig(),
+            mesh_axes=CacheKey.mesh_signature(self.ir.axes),
+            quantized=self.cfg.quantized,
+            stages=self.ir.pipeline_stages, qsig=self._qsig(),
             steps=steps, paged=tuple(paged), spec=tuple(spec),
         )
 
@@ -281,9 +371,15 @@ class ExecutionPlan:
             "shape": ir.shape.name if ir.shape else None,
             "mode": ir.mode,
             "device": str(ir.device),
+            "mesh": ir.mesh_spec.label(),
+            "mesh_axes": dict(ir.axes),
             "quantized": ir.quantized,
+            "pipeline_stages": ir.pipeline_stages,
+            "stage_axis": ir.stage_axis,
+            "stages": [s.as_dict() for s in ir.stages],
             "quant": dict(ir.quant),
             "executables": ir.executables,
+            "params": dict(ir.param_pspecs),
             "passes": [{"pass": name, **entry}
                        for name, entry in ir.decisions],
             "cache": self.cache.stats(),
@@ -294,7 +390,10 @@ def build_plan(
     arch: Union[str, ArchConfig],
     shape: Union[str, ShapeSpec, None] = None,
     *,
+    mode: Optional[str] = None,
+    mesh_spec: Optional[Any] = None,
     quantized: bool = False,
+    pipeline_stages: int = 1,
     debug: bool = False,
     config_overrides: Optional[Dict[str, Any]] = None,
     cache: Optional[ExecutableCache] = None,
@@ -304,8 +403,13 @@ def build_plan(
 
     ``arch`` is an architecture alias ("yi-6b") or an ArchConfig; ``shape``
     a ShapeSpec / SHAPES name, or None for a serve plan whose shapes come
-    per bucket. ``debug`` picks the reduced config. ``device`` defaults to
-    the card (and raises without one).
+    per bucket. ``debug`` picks the reduced config. ``mode`` overrides the
+    config's sharding mode. ``mesh_spec`` is a MeshSpec, a ``DeviceMesh``
+    or a duck-typed mesh; it defaults to the 1x1 debug mesh, with ``debug``
+    or without (a documented divergence: the reference's default without
+    ``debug`` is the 256-device production mesh, and the port runs on one
+    card). ``pipeline_stages`` > 1 engages the PlaceStages pass.
+    ``device`` defaults to the card (and raises without one).
     """
     if isinstance(arch, ArchConfig):
         cfg = arch
@@ -315,10 +419,17 @@ def build_plan(
         cfg = reduced_config(arch) if debug else get_config(arch)
     if config_overrides:
         cfg = cfg.with_(**config_overrides)
+    if mode:
+        cfg = cfg.with_(sharding_mode=mode)
     if isinstance(shape, str):
         shape = SHAPES[shape]
+    if mesh_spec is None:
+        mesh_spec = MeshSpec.debug(1, 1)
+    elif not isinstance(mesh_spec, MeshSpec):
+        mesh_spec = MeshSpec.from_mesh(mesh_spec)
     ir = PlanIR(cfg=cfg, shape=shape, mode=cfg.sharding_mode,
-                device_request=device, quantized=quantized)
+                mesh_spec=mesh_spec, device_request=device,
+                quantized=quantized, pipeline_stages=pipeline_stages)
     for _name, pass_fn in PLAN_PIPELINE:
         ir = pass_fn(ir)
     return ExecutionPlan(ir, cache)

@@ -5,7 +5,7 @@ from ``repro_torch.launch.steps``. Nothing is traced or compiled (the steps
 run eagerly), but the plan still routes every step through one cache
 keyed by everything that changes the program:
 
-    (arch, kind, batch, max_len, prefill_len, mode, device signature,
+    (arch, kind, batch, max_len, prefill_len, mode, mesh signature,
      quantized, stages, qsig, steps, paged, spec)
 
 so the ``hits`` / ``misses`` / ``builds`` counters show that a warm
@@ -20,18 +20,19 @@ import threading
 import time
 from typing import Any, Callable, Dict, Tuple
 
-import torch
+from repro_torch.dist.sharding import mesh_axis_sizes
 
 
 @dataclasses.dataclass(frozen=True)
 class CacheKey:
     """Identity of one step function.
 
-    The fields are the reference's. ``mesh_axes`` holds the device
-    signature (``(("cuda", 0),)``); ``steps`` is the masked micro-run's
-    length, ``paged`` its ``(page_count, page_size)`` and ``spec`` its
-    ``(spec_k, draft_layers)``; ``stages`` (pipeline stages) keeps its
-    reference default until the port carries pipelines.
+    The fields are the reference's. ``mesh_axes`` holds the plan's mesh
+    signature (``(("data", 1), ("model", 1))``) and ``stages`` its
+    pipeline stages; ``steps`` is the masked micro-run's length, ``paged``
+    its ``(page_count, page_size)`` and ``spec`` its ``(spec_k,
+    draft_layers)``. A step binds shapes only, not a device, so plans on
+    two devices may share an entry.
     """
 
     arch: str
@@ -49,8 +50,10 @@ class CacheKey:
     spec: Tuple[int, ...] = ()
 
     @staticmethod
-    def device_signature(device: torch.device) -> Tuple[Tuple[str, int], ...]:
-        return ((device.type, -1 if device.index is None else device.index),)
+    def mesh_signature(mesh) -> Tuple[Tuple[str, int], ...]:
+        """``(axis, size)`` pairs of a mesh, a duck-typed mesh or a
+        ``{axis: size}`` mapping."""
+        return tuple(mesh_axis_sizes(mesh).items())
 
 
 @dataclasses.dataclass

@@ -794,3 +794,31 @@ def test_moe_restart_is_bit_exact_on_card(cuda, tmp_path, monkeypatch):
     assert cfg.family == "moe" and cfg.n_experts > cfg.top_k
     _restart_is_bit_exact(cfg.with_(vocab=64, n_layers=2, remat=True),
                           tmp_path, monkeypatch)
+
+
+# ---------------------------------------------------------------------------
+# the plan's 1x1 mesh on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mode", ["cascade", "megatron", "megatron_sp"])
+def test_shard_params_on_the_card_mesh(cuda, mode):
+    """Every parameter of the reduced yi-6b placed on the plan's 1x1
+    ``cuda`` DeviceMesh (a world-1 nccl group) is ``torch.equal`` to
+    itself; a mesh larger than the world raises."""
+    import torch.distributed as dist
+
+    from repro_torch.models.base import build_model
+    from repro_torch.plan import MeshSpec, build_plan
+
+    plan = build_plan("yi-6b", None, debug=True, mode=mode)
+    model = build_model(plan.cfg).init_params(0)
+    params = dict(model.named_parameters())
+    placed = plan.shard_params(model)
+    assert set(placed) == set(params)
+    for name, t in placed.items():
+        assert t.device_mesh.device_type == "cuda"
+        assert torch.equal(t.to_local(), params[name]), name
+    assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+    with pytest.raises(RuntimeError, match="need 8 devices, have 1"):
+        build_plan("yi-6b", None, debug=True, mesh_spec=MeshSpec.debug(2, 4))

@@ -276,6 +276,24 @@ def test_plan_cli_warm_check(arch, flags, tmp_path, capsys):
 @pytest.mark.parametrize("flag", [["--data", "2"], ["--model", "4"],
                                   ["--multi-pod"], ["--stages", "2"]],
                          ids=lambda f: f[0])
-def test_plan_cli_mesh_flags_raise_naming_item_2(flag):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        plan_main(["--arch", "yi-6b", "--debug", "--device", "cpu", *flag])
+def test_plan_cli_mesh_flags_raise_naming_item_2(flag, tmp_path, capsys):
+    """The reference's mesh flags: a mesh larger than the world (one
+    process here) raises the reference's count error before any model is
+    allocated; ``--stages 2`` on the 1x1 mesh records the reference's
+    PlaceStages fallback and still passes the warm check."""
+    argv = ["--arch", "yi-6b", "--debug", "--device", "cpu", *flag]
+    need = {"--data": 2, "--model": 4, "--multi-pod": 512}.get(flag[0])
+    if need is not None:
+        with pytest.raises(RuntimeError,
+                           match=f"need {need} devices, have 1"):
+            plan_main(argv)
+        return
+    out = tmp_path / "plan.json"
+    assert plan_main([*argv, "--warm", "--out", str(out)]) == 0
+    assert "=> OK" in capsys.readouterr().out
+    d = json.loads(out.read_text())
+    assert d["mesh"] == "debug:1x1" and d["pipeline_stages"] == 2
+    place = [p for p in d["passes"] if p["pass"] == "PlaceStages"]
+    assert place == [{"pass": "PlaceStages", "stages": 2, "stage_axis": None,
+                      "fallback": "data axis (1 rows) cannot hold 2 equal "
+                                  "stages"}]

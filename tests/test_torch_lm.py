@@ -393,7 +393,9 @@ def test_init_params_is_seeded_and_scaled(tcfg):
 def test_plan_records_its_passes():
     plan = build_plan("yi-6b", None, debug=True, quantized=True,
                       device="cpu")
-    assert plan.ir.pass_names() == ["ResolveDevice", "Quantize", "Compile"]
+    assert plan.ir.pass_names() == ["ResolveDevice", "ResolveMesh",
+                                    "ResolveSharding", "PlaceStages",
+                                    "Quantize", "Compile"]
     d = plan.describe()
     assert d["quant"]["mlp"] and d["device"] == "cpu"
     assert sorted(d["executables"]) == ["decode", "masked_decode", "prefill"]

@@ -143,7 +143,8 @@ def test_import_loads_neither_jax_nor_reference():
         for p in (src / "repro_torch").rglob("*.py"))
     assert {"repro_torch.launch.serve", "repro_torch.plan.__main__",
             "repro_torch.launch.model_flops", "repro_torch.launch.roofline",
-            "repro_torch.launch.step_analysis"} <= set(modules)
+            "repro_torch.launch.step_analysis", "repro_torch.dist.sharding",
+            "repro_torch.launch.mesh"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"
