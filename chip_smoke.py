@@ -54,7 +54,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``to_local()`` must be ``torch.equal`` to the parameter and its
    placements those of ``pspec_to_placements`` over the leaf's
    PartitionSpec in ``describe()["params"]`` (stacked dims dropped); one
-   ``mesh 1x1 (nccl, world 1) <mode>: ...`` line per mode.
+   ``mesh 1x1 (nccl, world 1) <mode>: ...`` line per mode. Then the model
+   runs sharded: a megatron_sp plan's ``shard_model`` installs the
+   DTensors into the resident model one parameter at a time, and under
+   ``plan.activate()`` one prefill [2, 2048] must launch flash 32 times on
+   DTensor operands with logits held to the unsharded call by
+   ``PREFILL_TOL`` (their max difference printed), and phase 7's first
+   fifo wave must launch qmatmul 33 times per decode step with every
+   stream equal to phase 7's plain stream up to the first step whose
+   top-2 gap (a plain greedy loop) is under 0.1, and with the state placed
+   by its specs. A ``sharded 1x1`` line prints ms per decode step beside
+   phase 7's plain ms, the device idle share and the peak growth; then
+   ``unshard_model`` puts the plain parameters back, each ``torch.equal``
+   to the original, before phase 8.
 8. Timing of the LM path: median prefill latency, decode tokens/s, the
    device time of a prefill and of a decode step split into flash, qmatmul
    and other ops (torch.profiler; the kernel's share must be non-zero, so a
@@ -98,11 +110,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    to the first token and outcomes, and one speculative micro-run's host
    time and device split, paged and dense.
 
-11. The hybrid family at full width: zamba2-2.7b (54 Mamba2 layers in 9
-   groups of 6 and one weight-shared attention block after each group,
-   d_model 2560, 32 heads of dim 80, random bf16 weights from seed 0; the
-   yi-6b model is freed first). Prefill [2, 2048] through the plan's
-   ``executable("prefill")``: flash must launch exactly 9 times per call
+11. The hybrid family at full width: zamba2-2.7b, cut in depth for the
+   run's time limit to 30 of its 54 Mamba2 layers (5 of its 9 groups of
+   6, one weight-shared attention block after each group), d_model 2560,
+   32 heads of dim 80, random bf16 weights from seed 0; the yi-6b model is
+   freed first. Prefill [2, 2048] through the plan's
+   ``executable("prefill")``: flash must launch exactly 5 times per call
    (one per call site, head dim 80), each launch within the bf16 flash
    tolerance of the plain attention on its own inputs. The random Mamba2
    stack is chaotic (a 2**-8 relative noise on the embeddings decorrelates
@@ -113,8 +126,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    one paged wave and one dense wave of the same 12 requests (42-48
    prompt tokens drawn apart, so no two share a full page,
    ``max_new_tokens`` staggered over 4-24), each counted from zero:
-   qmatmul must launch 10 x 4 per micro-run (the LM head and the shared
-   block's down-projection at 9 call sites) and flash never; the scheduler
+   qmatmul must launch 6 x 4 per micro-run (the LM head and the shared
+   block's down-projection at 5 call sites) and flash never; the scheduler
    must refill slots; every stream is held, by phase 9's gap rule, to a
    plain greedy loop over ``HybridModel.decode_step`` replayed after the
    wave at the positions each request ran at, in batches of 8 (so every
@@ -132,11 +145,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    wave of 12 requests counted from zero, every stream held by phase 9's
    gap rule to the plain loop replayed at its positions in batches of 8;
    a prefill line and a micro-run line with the profiler split):
-   12. qwen1.5-4b (40 layers, QKV bias, vocab 151,936): 40 flash launches
-       per prefill, each held to the plain attention on its own inputs,
-       and the logits held to ``PREFILL_TOL`` against the plain chunked
-       attention; phase 9's first wave (shared system prompt);
-       qmatmul 41 x 4 per micro-run (the head and 40 down-projections).
+   12. qwen1.5-4b (QKV bias, vocab 151,936) cut in depth to 20 of its 40
+       layers for the run's time limit (phase 17 trains all 40): 20 flash
+       launches per prefill, each held to the plain attention on its own
+       inputs, and the logits held to ``PREFILL_TOL`` against the plain
+       chunked attention; phase 9's first wave (shared system prompt);
+       qmatmul 21 x 4 per micro-run (the head and 20 down-projections).
    13. phi3.5-moe-42b-a6.6b cut in depth to 24 of its 32 layers (the whole
        model does not fit one card): 24 flash launches per prefill, each
        held as for qwen; the share of expert assignments that capacity
@@ -146,7 +160,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
        the full depth with the plain forward taking the flash forward's
        routing; phase 9's first wave; qmatmul 1 x 4 per micro-run (the
        head; the expert FFNs stay float, as in the reference).
-   14. rwkv6-7b at full width, cut in depth to 16 of its 32 layers (the
+   14. rwkv6-7b at full width, cut in depth to 8 of its 32 layers (the
        run's time limit; 64 wkv heads of 64): no flash; the prefill of
        the first 64 tokens against 64 decode steps over them, printed at
        the cut depth beside the noise yardstick (the random stack is chaotic,
@@ -367,10 +381,12 @@ HYBRID_PROMPT = (42, 48)      # prompt lengths: phase 9's 40 + 2-8
 QWEN_ARCH, RWKV_ARCH = "qwen1.5-4b", "rwkv6-7b"
 MOE_ARCH = "phi3.5-moe-42b-a6.6b"
 MOE_LAYERS = 24
-# rwkv6-7b is cut in depth to 16 of its 32 layers for the run's time limit:
-# its prefill loops over the tokens on the host layer by layer, and its
-# serving waves are host-bound, so its time scales with the layers
-RWKV_LAYERS = 16
+# rwkv6-7b (8 of its 32 layers), zamba2 (30 of 54: 5 of 9 groups) and
+# qwen1.5-4b (20 of 40) are cut in depth for the run's time limit: their
+# serving waves and plain replays are host-bound (rwkv6's prefill loops
+# over the tokens on the host layer by layer), so their time scales with
+# the layers
+RWKV_LAYERS, HYBRID_LAYERS, QWEN_LAYERS = 8, 30, 20
 FLASH_PATH_QWEN = (PREFILL_BATCH * 20, PREFILL_SEQ, PREFILL_SEQ, 128, "bf16",
                    True, 0, False)
 # phases 15-16: the cross-attention families. seamless-m4t-large-v2 at its
@@ -423,6 +439,10 @@ RESTART_FAIL_AT = 4
 PLAN_CLI_ARCH = "yi-6b"
 PLAN_CLI_TIMEOUT_S = 300
 PLAN_CLI_PATH = "yi-6b plan CLI warm check, two waves (phase 19)"
+# phase 7: the resident yi-6b run sharded on the 1x1 mesh
+SHARDED_MODE = "megatron_sp"
+SHARDED_TIMED_STEPS = 8
+SHARDED_PATH = "yi-6b sharded 1x1 prefill/fifo (phase 7)"
 # phase 19: mesh flags larger than the world must fail this fast
 MESH_CLI_TIMEOUT_S = 30
 MESH_CLI_FAILS = ((["--data", "2"], "need 2 devices, have 1"),
@@ -1361,7 +1381,7 @@ def run_serve(dev, model, qmatmul_ops):
     return dict(launches=launches, decode_steps=decode_steps,
                 step_ms=step_ms, tokens_per_s=SERVE_BATCH * 1e3 / step_ms,
                 split=split, batcher=batcher.stats()["buckets"],
-                shifts=plan.ir.quant["mlp_shifts"], plan=plan)
+                shifts=plan.ir.quant["mlp_shifts"], plan=plan, waves=waves)
 
 
 def continuous_requests(vocab, wave):
@@ -2297,6 +2317,163 @@ def run_mesh_placement(dev, model, smi):
               f"(largest parameter {largest / 1e9:.3f} GB) [{smi}]")
 
 
+def run_sharded(dev, model, srv, pre_ms, flash_ops, qmatmul_ops, smi):
+    """Phase 7, continued: the resident yi-6b runs sharded on the 1x1 cuda
+    mesh under megatron_sp (``plan.shard_model`` + ``plan.activate()``):
+    one prefill [2, 2048] (32 flash launches on DTensor operands, logits
+    held to the unsharded forward by ``PREFILL_TOL``), phase 7's first fifo
+    wave (33 qmatmul launches per decode step, streams held to phase 7's
+    under the gap rule), and the timed decode step beside phase 7's; then
+    the plain parameters are put back. Returns the launches and times."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.dist.sharding import local_value
+    from repro_torch.models.base import ShapeSpec
+    from repro_torch.plan import build_plan
+    from repro_torch.serve import Bucket, BucketPolicy, DecodeRequest
+
+    t_phase = time.perf_counter()
+    shape = ShapeSpec("p", PREFILL_SEQ, PREFILL_BATCH, "prefill")
+    batch = prefill_batch(model.cfg, shape, dev)
+    reqs = [DecodeRequest(**r) for r in serve_requests(model.cfg.vocab, 0)]
+    plan = build_plan("yi-6b", None, mode=SHARDED_MODE, quantized=True,
+                      device=dev)
+    plan.load_params(model, shard=False)          # calibrates (as phase 7)
+    # the prefill runs the float path, as phase 6's plan does
+    float_cfg = plan.cfg.with_(quantized=False, quantized_mlp=False)
+    model.cfg = float_cfg
+    plain_logits = model.forward(batch)
+    model.cfg = plan.cfg
+    loop = greedy_loop(model, reqs, SERVE_MAX_LEN)
+    # the restore check holds each parameter on the host, so that the card
+    # frees a plain parameter as soon as its DTensor is installed
+    originals = {n: p.detach().cpu()
+                 for n, p in model.named_parameters()}
+    largest = max(p.numel() * p.element_size() for p in originals.values())
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    plan.shard_model(model)
+    torch.cuda.synchronize()
+    install_s = time.perf_counter() - t
+    held_gb = (torch.cuda.memory_allocated() - base) / 1e9
+    install_peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    if install_peak_gb * 1e9 > 2 * largest:
+        raise AssertionError(f"shard_model grew the peak by "
+                             f"{install_peak_gb:.3f} GB, the largest "
+                             f"parameter is {largest / 1e9:.3f} GB")
+    if not all(isinstance(p, DTensor) for p in model.parameters()):
+        raise AssertionError("shard_model left a plain parameter")
+    with plan.activate():
+        flash_ops.launches = 0
+        model.cfg = float_cfg
+        t = time.perf_counter()
+        logits = model.forward(batch)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t
+        model.cfg = plan.cfg
+        prefill_launches = flash_ops.launches
+        if not isinstance(logits, DTensor):
+            raise AssertionError("the sharded prefill returned plain logits")
+        logits = local_value(logits)
+        agree = prefill_agreement(logits, plain_logits)
+        if prefill_launches != model.cfg.n_layers \
+                or not within_prefill_tol(agree):
+            raise AssertionError(f"sharded prefill: {prefill_launches} flash "
+                                 f"launches, agreement {agree}")
+        del logits, plain_logits
+        batcher = plan.make_batcher(
+            policy=BucketPolicy([Bucket(SERVE_MAX_LEN, SERVE_BATCH)]))
+        qmatmul_ops.launches = 0
+        for r in reqs:
+            batcher.submit(r)
+        res = batcher.run()
+        wave = [res[r.request_id].tokens for r in reqs]
+        torch.cuda.synchronize()
+        launches = qmatmul_ops.launches
+        m = batcher.metrics[Bucket(SERVE_MAX_LEN, SERVE_BATCH).label]
+        steps = m.slot_steps // SERVE_BATCH
+        per_step = plan.cfg.n_layers + 1
+        if launches != per_step * steps or launches == 0:
+            raise AssertionError(f"sharded fifo: {launches} qmatmul launches "
+                                 f"over {steps} decode steps")
+        held = 0
+        full = sum(a == b for a, b in zip(wave, srv["waves"][0]))
+        for i, r in enumerate(reqs):
+            want, gaps = loop[r.request_id]
+            n = next((j for j, g in enumerate(gaps) if g < CONT_MIN_GAP),
+                     len(want))
+            for got in (wave[i], srv["waves"][0][i]):
+                if got[:n] != want[:n]:
+                    raise AssertionError(
+                        f"{r.request_id}: {got} != plain loop {want} "
+                        f"within {n} steps (phase 7: {srv['waves'][0][i]})")
+            held += n
+        decode = plan.serve_executable("decode", batch=SERVE_BATCH,
+                                       max_len=SERVE_MAX_LEN)
+        state = batcher.pool.acquire(SERVE_BATCH, SERVE_MAX_LEN)
+        if not all(isinstance(v, DTensor) for v in state.values()):
+            raise AssertionError("the sharded state pool handed out a plain "
+                                 "state")
+        tok = torch.ones(SERVE_BATCH, dtype=torch.int32, device=dev)
+
+        def step_n(n, p0):
+            nonlocal tok, state
+            for i in range(n):
+                lg, state = decode.fn(model, state, tok, p0 + i)
+                tok = plan.token_argmax(lg)
+
+        step_n(2, 0)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step_n(SHARDED_TIMED_STEPS, 2)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t) * 1e3 / SHARDED_TIMED_STEPS
+        split = profile_split(lambda: step_n(1, 40), calls=2)
+        batcher.pool.release(SERVE_BATCH, SERVE_MAX_LEN, state)
+        del state
+    torch.cuda.synchronize()
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    plan.unshard_model(model)
+    for name, p in model.named_parameters():
+        if type(p.data) is not torch.Tensor \
+                or not torch.equal(p.cpu(), originals[name]):
+            raise AssertionError(f"{name}: not restored to its plain value")
+    n_params = len(originals)
+    del originals
+    # phases 8-10 serve through phase 7's plan again
+    model.cfg = srv["plan"].cfg
+    model.reset_quantized()
+    idle = 1 - device_busy_ms(split) / step_ms
+    print(f"sharded 1x1 ({SHARDED_MODE}, {torch.distributed.get_backend()}"
+          f", world {torch.distributed.get_world_size()}): shard_model "
+          f"{install_s:.1f} s, held +{held_gb:.3f} GB, peak "
+          f"+{install_peak_gb:.3f} GB (largest parameter "
+          f"{largest / 1e9:.3f} GB); prefill [{PREFILL_BATCH}, "
+          f"{PREFILL_SEQ}] {prefill_launches} flash launches on DTensor "
+          f"operands, {prefill_s * 1e3:.1f} ms (first call; phase 6's "
+          f"median {pre_ms:.1f} ms), logits vs "
+          f"unsharded: max |diff| {agree['max_abs']:.6f}, mean |diff| "
+          f"{agree['mean_abs']:.6f}, argmax agreement "
+          f"{agree['argmax_agree']:.6f}; phase 7's fifo wave, {launches} "
+          f"qmatmul launches == {per_step} x {steps} decode steps, streams "
+          f"{wave} held to phase 7's and to a plain greedy loop over {held} "
+          f"tokens (gap >= {CONT_MIN_GAP}), {full} of {len(wave)} equal to "
+          f"phase 7's in full")
+    print(f"sharded 1x1 decode yi-6b quantized batch {SERVE_BATCH}: "
+          f"{step_ms:.4f} ms per step sharded vs {srv['step_ms']:.4f} ms "
+          f"plain (phase 7), x{step_ms / srv['step_ms']:.2f} (host clock, "
+          f"{SHARDED_TIMED_STEPS} steps); device per step: qmatmul "
+          f"{split['qmatmul_ms']:.4f} ms + other ops "
+          f"{split['other_device_ms']:.4f} ms, idle share {idle:.3f}; peak "
+          f"+{peak_gb:.3f} GB over the sharded run; phase "
+          f"{time.perf_counter() - t_phase:.1f} s; restored, all "
+          f"{n_params} parameters torch.equal [{smi}]")
+    return dict(flash=prefill_launches, qmatmul=launches, step_ms=step_ms,
+                idle=idle, peak_gb=peak_gb)
+
+
 def run_mesh_flags(env):
     """Phase 19, continued: the plan CLI with a mesh larger than the world
     (one process, one card) must exit non-zero with the reference's count
@@ -2493,6 +2670,7 @@ def main() -> int:
     # phase 7: fifo serving at full width, quantized, counted from zero
     srv = run_serve(dev, model, ops)
     run_mesh_placement(dev, model, smi)
+    shd = run_sharded(dev, model, srv, pre["median_ms"], flash_ops, ops, smi)
 
     # phase 8: timing of the LM path; a kernel renamed out of the
     # profiler's match would show as zero here
@@ -2542,8 +2720,9 @@ def main() -> int:
     del model, srv["plan"], cont, spec
     fams = []
     for phase, arch, kw in (
-            (11, HYBRID_ARCH, dict(recurrent=True)),
-            (12, QWEN_ARCH, {}),
+            (11, HYBRID_ARCH, dict(recurrent=True,
+                                   overrides={"n_layers": HYBRID_LAYERS})),
+            (12, QWEN_ARCH, dict(overrides={"n_layers": QWEN_LAYERS})),
             (13, MOE_ARCH, dict(overrides={"n_layers": MOE_LAYERS})),
             (14, RWKV_ARCH, dict(recurrent=True,
                                  overrides={"n_layers": RWKV_LAYERS},
@@ -2603,10 +2782,12 @@ def main() -> int:
         "name": "qmatmul", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": TPU_KERNEL,
         "launches": launches + srv["launches"] + cont_launches
-        + spec_launches + fam_launches + plan_cli["qmatmul"],
+        + spec_launches + fam_launches + plan_cli["qmatmul"]
+        + shd["qmatmul"],
         "launches_by_path": {
             "paper models (phase 3)": launches,
             "yi-6b fifo serve (phase 7)": srv["launches"],
+            SHARDED_PATH: shd["qmatmul"],
             "yi-6b continuous paged serve (phase 9)": cont_paged,
             "yi-6b continuous dense serve (phase 9)":
                 cont_launches - cont_paged,
@@ -2631,9 +2812,10 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_TPU_KERNEL,
         "launches": pre["launches"] + fam_flash + trained["fwd_flash"]
-        + plan_cli["flash"],
+        + plan_cli["flash"] + shd["flash"],
         "launches_by_path": {
             "yi-6b prefill (phase 6)": pre["launches"],
+            SHARDED_PATH: shd["flash"],
             **{f"{name} prefill (phase {phase})": f["prefill"]["launches"]
                for phase, name, f in fams if f["prefill"]["launches"]},
             f"{TRAIN_ARCH} prefill of the training batch (phase 17)":

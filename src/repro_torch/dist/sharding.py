@@ -24,15 +24,26 @@ dim that shards tensor dim ``d``, ``Replicate()`` on the others. A
 composite entry such as ``("pod", "data")`` shards one dim over two mesh
 dims, the first named outermost, as JAX lays it out.
 
-The reference's ``sharding_ctx``/``shard_act`` (activation constraints)
-act only when ops run over several ranks; they are not ported yet
-(ROADMAP Queue 1 item 2, part 2).
+Activations are constrained as in the reference: :func:`sharding_ctx`
+installs a ``(mesh, rules)`` pair for the calling thread, and
+:func:`shard_act` then returns its tensor as a DTensor laid out by the
+logical axes it names (a plain tensor is taken as replicated on every
+rank first). Outside a context ``shard_act`` returns its argument itself,
+so the one-device path never sees a DTensor. :func:`serving_grad_mode`
+picks the serve path's autograd mode: ``torch.inference_mode()`` outside
+a context, ``torch.no_grad()`` inside (DTensor's views cannot be made
+under inference mode). :func:`implicit_replication` lets the plain
+tensors the layers make (``arange``, masks, RoPE tables) meet DTensors as
+replicated ones, re-entrantly.
 """
 
 from __future__ import annotations
 
 import ast
 import dataclasses
+import functools
+import threading
+from contextlib import contextmanager
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
@@ -321,3 +332,238 @@ def specs_to_placements(specs: Mapping[str, ParamSpec], mesh,
     the reference's ``specs_to_shardings``)."""
     return {k: pspec_to_placements(spec_to_pspec(s, mesh, rules), mesh)
             for k, s in specs.items()}
+
+
+# ---------------------------------------------------------------------------
+# Context: install (mesh, rules) for activation constraints
+# ---------------------------------------------------------------------------
+
+_CTX = threading.local()
+
+
+@contextmanager
+def sharding_ctx(mesh, rules: ShardingRules):
+    """Install ``(mesh, rules)`` so that :func:`shard_act` lays activations
+    out on ``mesh``; outside it every ``shard_act`` is the identity.
+    Re-entrant and thread-local, as the reference's."""
+    prev = getattr(_CTX, "active", None)
+    _CTX.active = (mesh, rules)
+    try:
+        yield (mesh, rules)
+    finally:
+        _CTX.active = prev
+
+
+def current_ctx() -> Optional[Tuple[Any, ShardingRules]]:
+    """The innermost active ``(mesh, rules)`` of this thread, or None."""
+    return getattr(_CTX, "active", None)
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor (without importing DTensor for a plain
+    tensor's sake)."""
+    if type(x) is torch.Tensor or not torch.is_tensor(x):
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def replicated(x: torch.Tensor, mesh):
+    """``x`` as a DTensor on ``mesh``: a DTensor as it is, a plain tensor
+    as the same value replicated on every rank."""
+    if is_dtensor(x):
+        return x
+    from torch.distributed.tensor import DTensor, Replicate
+
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def shard_act(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
+    """Lay an activation out by logical axis names.
+
+    Under an active :func:`sharding_ctx` the names resolve through the
+    rule table (``logical_to_pspec``, then ``fit_pspec`` for ``x``'s
+    shape) to DTensor placements, and ``x`` comes back as a DTensor with
+    them: a DTensor is redistributed, a plain tensor is first taken as
+    replicated. Trailing unnamed dims replicate, and so does a dim whose
+    mesh axis has one device (:func:`whole_on_one_device`). With no
+    context it returns ``x`` itself."""
+    ctx = current_ctx()
+    if ctx is None:
+        return x
+    mesh, rules = ctx
+    pspec = fit_pspec(x.shape, logical_to_pspec(logical_axes, mesh, rules),
+                      mesh)
+    return replicated(x, mesh).redistribute(
+        mesh, whole_on_one_device(pspec_to_placements(pspec, mesh), mesh))
+
+
+def whole_on_one_device(placements: List[Any], mesh) -> List[Any]:
+    """``placements`` with every shard over a mesh dim of size 1 written as
+    ``Replicate()``: the same layout (one shard is the whole tensor), but
+    DTensor's view rules refuse to flatten or drop a dim sharded even over
+    one device (a decode step's [B, 1, d] activation, its sequence dim on
+    the model axis of a 1x1 mesh)."""
+    from torch.distributed.tensor import Replicate
+
+    return [Replicate() if mesh.size(i) == 1 else p
+            for i, p in enumerate(placements)]
+
+
+def on_replicated(fn, *args):
+    """``fn(*args)`` on whole values: with no DTensor among ``args`` a plain
+    call; else each tensor is gathered to ``Replicate`` on the DTensors'
+    mesh (a plain one taken as replicated), ``fn`` runs on the local
+    tensors, and every tensor it returns comes back as a replicated
+    DTensor. For ops DTensor has no sharding rule for (the MoE's sort,
+    ``searchsorted`` and scatter-add); autograd records through it."""
+    mesh = next((a.device_mesh for a in args if is_dtensor(a)), None)
+    if mesh is None:
+        return fn(*args)
+    from torch.distributed.tensor import DTensor, Replicate
+
+    rep = [Replicate()] * mesh.ndim
+    local = [replicated(a, mesh).redistribute(mesh, rep).to_local()
+             if torch.is_tensor(a) else a for a in args]
+    out = fn(*local)
+
+    def wrap(o):
+        return DTensor.from_local(o, mesh, rep, run_check=False)
+
+    return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
+
+
+def reshape(x: torch.Tensor, *shape: int) -> torch.Tensor:
+    """``x.reshape(*shape)``. A DTensor sharded on a dim that the reshape
+    splits or merges is first replicated on that mesh dim: DTensor cannot
+    split a sharded dim that its mesh dim does not divide evenly, nor
+    merge it with its neighbours (XLA pads instead). Dims the reshape
+    keeps, a common prefix and suffix, keep their sharding."""
+    if not is_dtensor(x):
+        return x.reshape(*shape)
+    from torch.distributed.tensor import Replicate
+
+    old = tuple(x.shape)
+    new = tuple(torch.empty(old, device="meta").reshape(*shape).shape)
+    lo = 0
+    while lo < min(len(old), len(new)) and old[lo] == new[lo]:
+        lo += 1
+    hi = 0
+    while (hi < min(len(old), len(new)) - lo
+           and old[len(old) - 1 - hi] == new[len(new) - 1 - hi]):
+        hi += 1
+    placements = [Replicate() if p.is_shard() and lo <= p.dim < len(old) - hi
+                  else p for p in x.placements]
+    if placements != list(x.placements):
+        x = x.redistribute(x.device_mesh, placements)
+    return x.reshape(*new)
+
+
+def whole(x: torch.Tensor, *dims: int) -> torch.Tensor:
+    """``x`` with the tensor dims ``dims`` replicated: a DTensor sharded on
+    one of them is gathered on that mesh dim; a plain tensor is returned
+    as it is. A product whose contraction dim is whole on every rank sums
+    in the unsharded product's order."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    want = {d % x.ndim for d in dims}
+    placements = [Replicate() if p.is_shard() and p.dim in want else p
+                  for p in x.placements]
+    if placements == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, placements)
+
+
+def local_product(fn, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``fn(a, b)`` for a product ``[M, K] x [K, N]`` (or batched ``[E, M,
+    K] x [E, K, N]``) of DTensors, run by ``fn`` on each rank's local
+    operands: for ops DTensor has no sharding rule for (``torch.mm`` with
+    ``out_dtype``, the card's fp32-output GEMM). Per mesh dim the output
+    keeps ``a``'s rows or ``b``'s columns sharded (or, batched, the shared
+    batch dim), and every other operand dim, the contraction among them,
+    is gathered, so each rank sums whole products."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = next(t.device_mesh for t in (a, b) if is_dtensor(t))
+    a, b = replicated(a, mesh), replicated(b, mesh)
+    rows, cols = a.ndim - 2, b.ndim - 1
+    pa, pb, out = [], [], []
+    for i in range(mesh.ndim):
+        sa, sb = a.placements[i], b.placements[i]
+        if sa.is_shard(rows):
+            pick = (Shard(rows), Replicate(), Shard(rows))
+        elif sb.is_shard(cols):
+            pick = (Replicate(), Shard(cols), Shard(cols))
+        elif a.ndim == 3 and (sa.is_shard(0) or sb.is_shard(0)):
+            pick = (Shard(0), Shard(0), Shard(0))
+        else:
+            pick = (Replicate(), Replicate(), Replicate())
+        pa.append(pick[0])
+        pb.append(pick[1])
+        out.append(pick[2])
+    y = fn(a.redistribute(mesh, pa).to_local(),
+           b.redistribute(mesh, pb).to_local())
+    return DTensor.from_local(y, mesh, out, run_check=False)
+
+
+def local_value(x: torch.Tensor) -> torch.Tensor:
+    """The whole value of ``x`` as a plain tensor on this rank (a DTensor
+    is gathered; a plain tensor is returned as it is): what the host reads
+    back, tokens and logits."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def serving_grad_mode():
+    """The autograd mode of the serve path: ``torch.inference_mode()``
+    outside a sharding context (the one-device path), ``torch.no_grad()``
+    inside one, where DTensor views cannot be made under inference mode
+    ("Cannot set version_counter for inference tensor")."""
+    if current_ctx() is None:
+        return torch.inference_mode()
+    return torch.no_grad()
+
+
+def serving(fn):
+    """Decorate a serve-path function to run under
+    :func:`serving_grad_mode`, decided at each call."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with serving_grad_mode():
+            return fn(*args, **kwargs)
+
+    return wrapper
+
+
+_IMPLICIT = threading.Lock()
+_implicit_depth = 0
+_implicit_cm = None
+
+
+@contextmanager
+def implicit_replication():
+    """DTensor's ``implicit_replication`` (plain tensors that meet DTensors
+    in an op are taken as replicated), re-entrant across threads: DTensor
+    keeps the switch process-wide and its own context turns it off on any
+    exit, so the first entry turns it on and the last exit off."""
+    global _implicit_depth, _implicit_cm
+    from torch.distributed.tensor.experimental import (
+        implicit_replication as dtensor_implicit_replication,
+    )
+
+    with _IMPLICIT:
+        if _implicit_depth == 0:
+            _implicit_cm = dtensor_implicit_replication()
+            _implicit_cm.__enter__()
+        _implicit_depth += 1
+    try:
+        yield
+    finally:
+        with _IMPLICIT:
+            _implicit_depth -= 1
+            if _implicit_depth == 0:
+                _implicit_cm.__exit__(None, None, None)
+                _implicit_cm = None

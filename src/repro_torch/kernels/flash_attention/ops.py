@@ -16,7 +16,15 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import Work, build, reported, require_no_grad
+from repro_torch.kernels import (
+    Work,
+    build,
+    dtensor_mesh,
+    gathered,
+    replicated_out,
+    reported,
+    require_no_grad,
+)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 # Kernel launches since import (or since a caller reset it to 0). Only a
@@ -149,13 +157,20 @@ def flash_attention(
     only feed the reference wrapper's argument checks
     (:func:`_check_blocks`); the CUDA kernel picks its own tiling. Raises
     if an input requires grad while grad is enabled: the kernel has no
-    backward (nor had the reference's).
+    backward (nor had the reference's). DTensor operands are gathered and
+    the kernel (its plain version on the CPU) runs once on the whole
+    operands (see ``repro_torch.kernels``).
     """
     global launches
     require_no_grad("flash_attention", q, k, v)
     BH, Sq, hd = q.shape
     Sk = k.shape[1]
     _check_blocks(Sq, Sk, causal, block_q, block_k)
+    mesh = dtensor_mesh("flash_attention", q, k, v)
+    if mesh is not None:
+        q, k, v = gathered(mesh, q, k, v)
+        return replicated_out(
+            flash_attention(q, k, v, causal=causal, q_start=q_start), mesh)
     if q.device.type == "cpu":
         with reported("flash_attention",
                       work(BH, Sq, Sk, hd, q.dtype, causal)):

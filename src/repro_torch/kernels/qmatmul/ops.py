@@ -15,7 +15,15 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import Work, build, reported, require_no_grad
+from repro_torch.kernels import (
+    Work,
+    build,
+    dtensor_mesh,
+    gathered,
+    replicated_out,
+    reported,
+    require_no_grad,
+)
 from repro_torch.kernels.qmatmul.ref import qlinear_ref
 from repro_torch.quant.srs import TORCH_DTYPES, VALID_ROUNDING
 
@@ -173,9 +181,17 @@ def qlinear(
     are accepted for compatibility with the reference's signature and
     ignored: the CUDA kernel's tiling comes from :func:`plan`. Raises if
     an input requires grad while grad is enabled (the kernel has no
-    backward).
+    backward). DTensor operands are gathered and the kernel (its plain
+    version on the CPU) runs once on the whole operands (see
+    ``repro_torch.kernels``).
     """
     require_no_grad("qmatmul", x, w, bias)
+    mesh = dtensor_mesh("qmatmul", x, w, bias)
+    if mesh is not None:
+        x, w, bias = gathered(mesh, x, w, bias)
+        return replicated_out(
+            qlinear(x, w, bias, shift=shift, relu=relu, out_dtype=out_dtype,
+                    rounding=rounding), mesh)
     if x.device.type == "cpu":
         with reported("qmatmul", _work_of(x, w, bias, out_dtype)):
             return qlinear_ref(x, w, bias, shift=shift, relu=relu,

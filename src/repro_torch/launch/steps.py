@@ -4,7 +4,10 @@ Each ``make_*`` returns a plain function whose first argument is the model
 (the reference's executables took the parameter tree there). Nothing is
 traced or compiled: a step runs eagerly on the model's device, and a
 "build" is binding the step to its shapes. Steps check their inputs'
-shapes against the shapes they were built for.
+shapes against the shapes they were built for. On a sharded model
+(``ExecutionPlan.activate``) the serve steps run under ``torch.no_grad``
+instead of inference mode, and the tokens they return are plain tensors
+(``dist.sharding.local_value``), which the host reads as it always has.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.dist.sharding import local_value, serving
 from repro_torch.models.base import (
     ArchConfig,
     PageView,
@@ -116,7 +120,7 @@ def make_prefill_decode_step(cfg: ArchConfig, batch: int, prefill_len: int,
         raise ValueError(f"prefill_len {prefill_len} exceeds max_len "
                          f"{max_len}")
 
-    @torch.inference_mode()
+    @serving
     def prefill_decode(model, state, prompt: torch.Tensor,
                        lengths: torch.Tensor):
         _expect("prompt", prompt, (batch, prefill_len))
@@ -126,7 +130,7 @@ def make_prefill_decode_step(cfg: ArchConfig, batch: int, prefill_len: int,
         for i in range(prefill_len):
             tok = torch.where(i < lengths, prompt[:, i], prev)
             logits, state = model.decode_step(state, tok, i)
-            prev = torch.argmax(logits, dim=-1).to(torch.int32)
+            prev = local_value(torch.argmax(logits, dim=-1)).to(torch.int32)
             toks.append(prev)
         return torch.stack(toks, dim=1), state
 
@@ -210,7 +214,7 @@ def make_masked_decode_step(cfg: ArchConfig, batch: int, max_len: int, *,
                              f"page_size {page_size}")
         n_tables = max_len // page_size
 
-    @torch.inference_mode()
+    @serving
     def masked_decode(model, state, feed: torch.Tensor, prev: torch.Tensor,
                       pos: int, start: torch.Tensor, active: torch.Tensor,
                       fresh: torch.Tensor,
@@ -245,9 +249,8 @@ def make_masked_decode_step(cfg: ArchConfig, batch: int, max_len: int, *,
                                                   window_start=start[i])
             # a masked lane emits 0; a slot live at the next micro-run is
             # active at step k-1, so ``last`` is always a valid next prev
-            last = torch.where(active[i],
-                               torch.argmax(logits, dim=-1).to(torch.int32),
-                               0)
+            tok = local_value(torch.argmax(logits, dim=-1))
+            last = torch.where(active[i], tok.to(torch.int32), 0)
             toks.append(last)
         return torch.stack(toks), last, state
 
@@ -266,7 +269,8 @@ def make_masked_decode_step(cfg: ArchConfig, batch: int, max_len: int, *,
             logits, _ = model.decode_block(
                 dstate, tok_in[:, None], local0 + i, pages=view(local0 + i),
                 n_layers=draft_layers)
-            last = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
+            last = local_value(torch.argmax(logits[:, 0], dim=-1)).to(
+                torch.int32)
             tok_ins.append(tok_in)
             drafts.append(last)
         # one teacher-forced pass of the whole model over the k tokens the
@@ -274,7 +278,8 @@ def make_masked_decode_step(cfg: ArchConfig, batch: int, max_len: int, *,
         # same token prefix)
         logits, _ = model.decode_block(tstate, torch.stack(tok_ins, dim=1),
                                        local0, pages=view(local0))
-        verify = torch.argmax(logits, dim=-1).to(torch.int32).T   # [k, B]
+        verify = local_value(torch.argmax(logits, dim=-1)).to(
+            torch.int32).T                                          # [k, B]
         return (torch.where(active, verify, 0),
                 torch.where(active, torch.stack(drafts), 0), state)
 

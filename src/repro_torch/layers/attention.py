@@ -17,6 +17,7 @@ from typing import Mapping, Optional, Union
 
 import torch
 
+from repro_torch.dist.sharding import is_dtensor, reshape, shard_act, whole
 from repro_torch.kernels.flash_attention.ops import accepts as flash_accepts
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.layers.linear import bmm_f32, linear
@@ -48,15 +49,15 @@ def _products(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                        v.float()))
     B, Sq, H, hd = q.shape
     Sk = k.shape[1]
-    scores = bmm_f32(q.transpose(1, 2).reshape(B * H, Sq, hd),
-                     k.permute(0, 2, 3, 1).reshape(B * H, hd, Sk))
+    scores = bmm_f32(reshape(q.transpose(1, 2), B * H, Sq, hd),
+                     reshape(k.permute(0, 2, 3, 1), B * H, hd, Sk))
 
     def pv(p: torch.Tensor) -> torch.Tensor:
-        out = bmm_f32(p.reshape(B * H, Sq, Sk),
-                      v.transpose(1, 2).reshape(B * H, Sk, hd))
-        return out.view(B, H, Sq, hd).transpose(1, 2)
+        out = bmm_f32(reshape(p, B * H, Sq, Sk),
+                      reshape(v.transpose(1, 2), B * H, Sk, hd))
+        return reshape(out, B, H, Sq, hd).transpose(1, 2)
 
-    return scores.view(B, H, Sq, Sk), pv
+    return reshape(scores, B, H, Sq, Sk), pv
 
 
 def _attend_block(
@@ -87,6 +88,24 @@ def _attend_block(
     # the probabilities are rounded to v's dtype before the PV product, as
     # in the reference; the product itself accumulates in fp32
     return pv(p.to(v.dtype)).to(v.dtype)
+
+
+def _write_rows(cache: torch.Tensor, rows: torch.Tensor,
+                vals: torch.Tensor) -> None:
+    """``cache[b, rows[b, j]] = vals[b, j]`` in place: ``cache`` [B, S, KV,
+    hd], ``rows`` [B, m] positions, ``vals`` [B, m, KV, hd]. A DTensor
+    cache (sharded by batch, or by sequence under megatron_sp, where an
+    indexed write would land on a gathered copy) is written as a select
+    per block row, ``cache <- where(position == row, value, cache)``,
+    which DTensor runs on each rank's own slice."""
+    if not is_dtensor(cache):
+        lanes = torch.arange(cache.shape[0], device=cache.device)[:, None]
+        cache[lanes, rows] = vals
+        return
+    pos = torch.arange(cache.shape[1], device=rows.device)
+    for j in range(rows.shape[1]):
+        hit = (pos[None, :] == rows[:, j:j + 1])[:, :, None, None]
+        cache.copy_(torch.where(hit, vals[:, j:j + 1], cache))
 
 
 def mha(
@@ -123,18 +142,28 @@ def mha(
     if G > 1:
         k = torch.repeat_interleave(k, G, dim=2)          # [B, Sk, H, hd]
         v = torch.repeat_interleave(v, G, dim=2)
+    # seq first: a seq-sharded KV (megatron_sp) takes precedence over head
+    # sharding; fit_pspec drops the duplicate (the reference's constraint)
+    k = shard_act(k, "batch", "seq", "act_heads", None)
+    v = shard_act(v, "batch", "seq", "act_heads", None)
+    if Sq == k.shape[1]:
+        # a prefill gathers its keys over the sequence, as Megatron's
+        # sequence parallelism does before attention (a port step: DTensor
+        # would split the softmax-weighted sum over the sequence shards);
+        # a decode step's cache keeps the flash-decoding layout
+        k, v = whole(k, 1), whole(v, 1)
 
     records = torch.is_grad_enabled() and (
         q.requires_grad or k.requires_grad or v.requires_grad)
     if USE_FLASH_KERNEL and not records and kv_valid is None \
             and Sq == k.shape[1] and flash_accepts(Sq, Sq, hd, causal):
-        qf = q.transpose(1, 2).reshape(B * H, Sq, hd)
-        kf = k.transpose(1, 2).reshape(B * H, -1, hd)
-        vf = v.transpose(1, 2).reshape(B * H, -1, hd)
+        qf = reshape(q.transpose(1, 2), B * H, Sq, hd)
+        kf = reshape(k.transpose(1, 2), B * H, -1, hd)
+        vf = reshape(v.transpose(1, 2), B * H, -1, hd)
         o = flash_attention(qf, kf, vf, causal=causal,
                             q_start=0 if torch.is_tensor(q_start)
                             else int(q_start))
-        return o.reshape(B, H, Sq, hd).transpose(1, 2)
+        return reshape(o, B, H, Sq, hd).transpose(1, 2)
 
     if Sq <= q_chunk or Sq % q_chunk:
         return _attend_block(q, k, v, q_start, kv_valid, causal, scale,
@@ -160,14 +189,16 @@ def self_attention(
     q_chunk: int = 1024,
 ) -> torch.Tensor:
     B, S, _ = x.shape
-    q = linear(params["wq"], x).reshape(B, S, n_heads, head_dim)
-    k = linear(params["wk"], x).reshape(B, S, n_kv, head_dim)
-    v = linear(params["wv"], x).reshape(B, S, n_kv, head_dim)
+    q = reshape(linear(params["wq"], x), B, S, n_heads, head_dim)
+    k = reshape(linear(params["wk"], x), B, S, n_kv, head_dim)
+    v = reshape(linear(params["wv"], x), B, S, n_kv, head_dim)
     inv_freq = rope_freqs(head_dim, rope_theta, device=x.device)
     q = apply_rope(q, positions, inv_freq)
     k = apply_rope(k, positions, inv_freq)
+    q = shard_act(q, "batch", "seq", "act_heads", None)
     o = mha(q, k, v, causal=causal, q_chunk=q_chunk)
-    return linear(params["wo"], o.reshape(B, S, n_heads * head_dim))
+    o = shard_act(o, "batch", "seq", "act_heads", None)
+    return linear(params["wo"], reshape(o, B, S, n_heads * head_dim))
 
 
 def cross_attention(
@@ -187,11 +218,12 @@ def cross_attention(
     mask)."""
     B, Sq, _ = x.shape
     Sm = memory.shape[1]
-    q = linear(params["wq"], x).reshape(B, Sq, n_heads, head_dim)
-    k = linear(params["wk"], memory).reshape(B, Sm, n_kv, head_dim)
-    v = linear(params["wv"], memory).reshape(B, Sm, n_kv, head_dim)
+    q = reshape(linear(params["wq"], x), B, Sq, n_heads, head_dim)
+    k = reshape(linear(params["wk"], memory), B, Sm, n_kv, head_dim)
+    v = reshape(linear(params["wv"], memory), B, Sm, n_kv, head_dim)
+    q = shard_act(q, "batch", "seq", "act_heads", None)
     o = mha(q, k, v, causal=False, kv_valid=memory_valid, q_chunk=q_chunk)
-    return linear(params["wo"], o.reshape(B, Sq, n_heads * head_dim))
+    return linear(params["wo"], reshape(o, B, Sq, n_heads * head_dim))
 
 
 def decode_cross_attention(
@@ -207,9 +239,9 @@ def decode_cross_attention(
     keys and values (the decode state's ``cross_k``/``cross_v``), through
     the plain path of :func:`mha`. Returns [B, 1, d]."""
     B = x.shape[0]
-    q = linear(params["wq"], x).reshape(B, 1, n_heads, head_dim)
+    q = reshape(linear(params["wq"], x), B, 1, n_heads, head_dim)
     o = mha(q, cross_k, cross_v, causal=False)
-    return linear(params["wo"], o.reshape(B, 1, n_heads * head_dim))
+    return linear(params["wo"], reshape(o, B, 1, n_heads * head_dim))
 
 
 def decode_self_attention(
@@ -238,21 +270,26 @@ def decode_self_attention(
     S = cache_k.shape[1]
     if not 0 <= pos < S:
         raise ValueError(f"decode position {pos} outside the cache [0, {S})")
-    q = linear(params["wq"], x).reshape(B, 1, n_heads, head_dim)
-    k = linear(params["wk"], x).reshape(B, 1, n_kv, head_dim)
-    v = linear(params["wv"], x).reshape(B, 1, n_kv, head_dim)
+    q = reshape(linear(params["wq"], x), B, 1, n_heads, head_dim)
+    k = reshape(linear(params["wk"], x), B, 1, n_kv, head_dim)
+    v = reshape(linear(params["wv"], x), B, 1, n_kv, head_dim)
     posb = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     inv_freq = rope_freqs(head_dim, rope_theta, device=x.device)
     q = apply_rope(q, posb, inv_freq)
     k = apply_rope(k, posb, inv_freq)
-    cache_k[:, pos] = k[:, 0]
-    cache_v[:, pos] = v[:, 0]
+    if is_dtensor(cache_k):
+        rows = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+        _write_rows(cache_k, rows, k)
+        _write_rows(cache_v, rows, v)
+    else:
+        cache_k[:, pos] = k[:, 0]
+        cache_v[:, pos] = v[:, 0]
     idx = torch.arange(S, device=x.device)
     kv_valid = (idx <= pos)[None, :].expand(B, S)
     if window_start is not None:
         kv_valid = kv_valid & (idx[None, :] >= window_start[:, None])
     o = mha(q, cache_k, cache_v, causal=False, kv_valid=kv_valid)
-    out = linear(params["wo"], o.reshape(B, 1, n_heads * head_dim))
+    out = linear(params["wo"], reshape(o, B, 1, n_heads * head_dim))
     return out, cache_k, cache_v
 
 
@@ -288,9 +325,9 @@ def paged_decode_self_attention(
     ps = pages.page_size
     table = pages.table.long()
     S = table.shape[1] * ps
-    q = linear(params["wq"], x).reshape(B, 1, n_heads, head_dim)
-    k = linear(params["wk"], x).reshape(B, 1, n_kv, head_dim)
-    v = linear(params["wv"], x).reshape(B, 1, n_kv, head_dim)
+    q = reshape(linear(params["wq"], x), B, 1, n_heads, head_dim)
+    k = reshape(linear(params["wk"], x), B, 1, n_kv, head_dim)
+    v = reshape(linear(params["wv"], x), B, 1, n_kv, head_dim)
     local = pages.local_pos.long().clamp(0, S - 1)
     inv_freq = rope_freqs(head_dim, rope_theta, device=x.device)
     q = apply_rope(q, local[:, None], inv_freq)
@@ -299,11 +336,11 @@ def paged_decode_self_attention(
     offs = local % ps
     cache_k[page_ids, offs] = k[:, 0]
     cache_v[page_ids, offs] = v[:, 0]
-    k_all = cache_k[table].reshape(B, S, n_kv, head_dim)
-    v_all = cache_v[table].reshape(B, S, n_kv, head_dim)
+    k_all = reshape(cache_k[table], B, S, n_kv, head_dim)
+    v_all = reshape(cache_v[table], B, S, n_kv, head_dim)
     kv_valid = torch.arange(S, device=x.device)[None, :] <= local[:, None]
     o = mha(q, k_all, v_all, causal=False, kv_valid=kv_valid)
-    out = linear(params["wo"], o.reshape(B, 1, n_heads * head_dim))
+    out = linear(params["wo"], reshape(o, B, 1, n_heads * head_dim))
     return out, cache_k, cache_v
 
 
@@ -368,23 +405,22 @@ def block_decode_self_attention(
     """
     B, m, _ = x.shape
     S = cache_k.shape[1]
-    q = linear(params["wq"], x).reshape(B, m, n_heads, head_dim)
-    k = linear(params["wk"], x).reshape(B, m, n_kv, head_dim)
-    v = linear(params["wv"], x).reshape(B, m, n_kv, head_dim)
+    q = reshape(linear(params["wq"], x), B, m, n_heads, head_dim)
+    k = reshape(linear(params["wk"], x), B, m, n_kv, head_dim)
+    v = reshape(linear(params["wv"], x), B, m, n_kv, head_dim)
     posb = local.long()[:, None] + torch.arange(m, device=x.device)
     inv_freq = rope_freqs(head_dim, rope_theta, device=x.device)
     q = apply_rope(q, posb, inv_freq)
     k = apply_rope(k, posb, inv_freq)
     rows, k_w, v_w = _block_write_rows(posb, S, k, v, cache_k[:, S - 1],
                                        cache_v[:, S - 1])
-    lanes = torch.arange(B, device=x.device)[:, None]
-    cache_k[lanes, rows] = k_w
-    cache_v[lanes, rows] = v_w
+    _write_rows(cache_k, rows, k_w)
+    _write_rows(cache_v, rows, v_w)
     # query j of slot b sees exactly rows [0, local[b] + j]
     kv_valid = (torch.arange(S, device=x.device)[None, None, :]
                 <= posb[:, :, None])
     o = mha(q, cache_k, cache_v, causal=False, kv_valid=kv_valid)
-    out = linear(params["wo"], o.reshape(B, m, n_heads * head_dim))
+    out = linear(params["wo"], reshape(o, B, m, n_heads * head_dim))
     return out, cache_k, cache_v
 
 
@@ -423,9 +459,9 @@ def paged_block_decode_self_attention(
     table = pages.table.long()
     n_pages = table.shape[1]
     S = n_pages * ps
-    q = linear(params["wq"], x).reshape(B, m, n_heads, head_dim)
-    k = linear(params["wk"], x).reshape(B, m, n_kv, head_dim)
-    v = linear(params["wv"], x).reshape(B, m, n_kv, head_dim)
+    q = reshape(linear(params["wq"], x), B, m, n_heads, head_dim)
+    k = reshape(linear(params["wk"], x), B, m, n_kv, head_dim)
+    v = reshape(linear(params["wv"], x), B, m, n_kv, head_dim)
     posb = pages.local_pos.long()[:, None] + torch.arange(m, device=x.device)
     inv_freq = rope_freqs(head_dim, rope_theta, device=x.device)
     q = apply_rope(q, posb, inv_freq)
@@ -439,11 +475,11 @@ def paged_block_decode_self_attention(
     for j in range(0, m, ps):
         cache_k[page_ids[:, j:j + ps], offs[:, j:j + ps]] = k_w[:, j:j + ps]
         cache_v[page_ids[:, j:j + ps], offs[:, j:j + ps]] = v_w[:, j:j + ps]
-    k_all = cache_k[table].reshape(B, S, n_kv, head_dim)
-    v_all = cache_v[table].reshape(B, S, n_kv, head_dim)
+    k_all = reshape(cache_k[table], B, S, n_kv, head_dim)
+    v_all = reshape(cache_v[table], B, S, n_kv, head_dim)
     # query j of slot b sees exactly local rows [0, local_pos[b] + j]
     kv_valid = (torch.arange(S, device=x.device)[None, None, :]
                 <= posb[:, :, None])
     o = mha(q, k_all, v_all, causal=False, kv_valid=kv_valid)
-    out = linear(params["wo"], o.reshape(B, m, n_heads * head_dim))
+    out = linear(params["wo"], reshape(o, B, m, n_heads * head_dim))
     return out, cache_k, cache_v

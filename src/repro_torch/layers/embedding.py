@@ -6,8 +6,10 @@ from typing import Mapping
 
 import torch
 
+from repro_torch.dist.sharding import shard_act
+
 
 def embed(params: Mapping[str, torch.Tensor],
           tokens: torch.Tensor) -> torch.Tensor:
-    """Rows of the [vocab, d] table for int tokens of any shape."""
-    return params["table"][tokens]
+    """Rows of the [vocab, d] table for int tokens [B, S]."""
+    return shard_act(params["table"][tokens], "batch", "seq", "act_embed")

@@ -12,6 +12,7 @@ from typing import Mapping, Optional
 
 import torch
 
+from repro_torch.dist.sharding import is_dtensor, local_product, reshape
 from repro_torch.kernels import require_no_grad
 from repro_torch.kernels.qmatmul.ops import qlinear
 from repro_torch.quant.srs import INT_RANGE, TORCH_DTYPES
@@ -48,7 +49,11 @@ class _MatmulF32(torch.autograd.Function):
 
 def _product_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """:func:`_mm_f32`, through :class:`_MatmulF32` only while autograd
-    records (serving calls the GEMM directly)."""
+    records (serving calls the GEMM directly). DTensor has no sharding
+    rule for a product with ``out_dtype``: DTensor operands run it on
+    their local tensors (``dist.sharding.local_product``)."""
+    if is_dtensor(a) or is_dtensor(b):
+        return local_product(_product_f32, a, b)
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
         return _MatmulF32.apply(a, b)
     return _mm_f32(a, b)
@@ -64,8 +69,8 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     :class:`_MatmulF32`'s (bf16 GEMMs), on the CPU the upcast product's.
     """
     if x.is_cuda and x.dtype == w.dtype == torch.bfloat16:
-        y = _product_f32(x.reshape(-1, x.shape[-1]), w)
-        return y.reshape(*x.shape[:-1], w.shape[-1])
+        y = _product_f32(reshape(x, -1, x.shape[-1]), w)
+        return reshape(y, *x.shape[:-1], w.shape[-1])
     return torch.matmul(x.float(), w.float())
 
 
@@ -132,9 +137,9 @@ def quantized_linear(
             params["b"].float() * (2.0 ** (x_shift + w_shift))).to(torch.int32)
     lead = xq.shape[:-1]
     y = qlinear(
-        xq.reshape(-1, xq.shape[-1]).contiguous(), wq, bq,
+        reshape(xq, -1, xq.shape[-1]).contiguous(), wq, bq,
         shift=x_shift + w_shift - out_shift, relu=relu, out_dtype=out_dtype,
     )
-    y = y.reshape(*lead, y.shape[-1])
+    y = reshape(y, *lead, y.shape[-1])
     y = y.float() * (2.0 ** -out_shift)
     return y.to(out_float_dtype or x.dtype)

@@ -10,6 +10,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import shard_act
 from repro_torch.layers.linear import linear, quantized_linear
 
 _CAL = threading.local()
@@ -46,6 +47,7 @@ def swiglu(params: Mapping[str, Mapping[str, torch.Tensor]], x: torch.Tensor,
     g = linear(params["gate"], x)
     u = linear(params["up"], x)
     h = F.silu(g.float()).to(x.dtype) * u
+    h = shard_act(h, "batch", "seq", "act_mlp")
     if quant is not None:
         x_shift, w_shift, out_shift = quant
         return quantized_linear(
@@ -69,4 +71,5 @@ def mlp(params: Mapping[str, Mapping[str, torch.Tensor]], x: torch.Tensor,
     default is the exact erf form); anything else is ReLU."""
     hf = linear(params["up"], x).float()
     hf = F.gelu(hf, approximate="tanh") if act == "gelu" else F.relu(hf)
-    return linear(params["down"], hf.to(x.dtype))
+    h = shard_act(hf.to(x.dtype), "batch", "seq", "act_mlp")
+    return linear(params["down"], h)

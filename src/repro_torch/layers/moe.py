@@ -9,11 +9,15 @@ per expert, overflow dropped. Each expert's SwiGLU runs as one batched
 product over its slots, and the outputs, scaled by their gates, are added
 back to their tokens in fp32.
 
-The reference's expert-parallel sharding constraints have no counterpart
-on one card. No TPU kernel lies on this path: it is plain torch, with
-every product summed in fp32 as the reference's ``preferred_element_type``
-asks. The reference's ungated expert variant (``gated=False``) has no
-caller and is not carried.
+Under a sharding context the reference's expert-parallel constraints
+apply (``shard_act``). DTensor has no sharding rule for the sort,
+``searchsorted`` or the scatter-add, so the dispatch, the slot gather and
+the combine run on replicated local tensors (``on_replicated``: a
+divergence, the reference's GSPMD partitions them itself); the expert
+products stay on the sharded weights. No TPU kernel lies on this path: it
+is plain torch, with every product summed in fp32 as the reference's
+``preferred_element_type`` asks. The reference's ungated expert variant
+(``gated=False``) has no caller and is not carried.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from typing import Mapping, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import on_replicated, reshape, shard_act
 from repro_torch.layers.linear import bmm_f32
 
 
@@ -89,14 +94,40 @@ def expert_ffn(params: Mapping[str, torch.Tensor], xe: torch.Tensor,
     """Each expert's SwiGLU over its slots ``xe`` [G, E, C, d], scaled by
     ``gate`` [G, E, C]: fp32 [G, E, C, d]. The gate and up products are
     fp32, their SwiGLU is rounded to x's dtype, and the down product is
-    fp32 again (the reference's ``moe`` and ``_expert_ffn``)."""
+    fp32 again (the reference's ``moe`` and ``_expert_ffn``). With one
+    group the slots and the SwiGLU are laid out as the reference's global
+    ``moe`` lays its [E, C, ...] tensors (experts, then capacity), with
+    several as its ``moe_grouped`` lays [G, E, C, d]."""
     G, E, C, d = xe.shape
-    xs = xe.transpose(0, 1).reshape(E, G * C, d)
+    if G > 1:
+        xe = shard_act(xe, "batch", "experts", None, None)
+    xs = reshape(xe.transpose(0, 1), E, G * C, d)
+    if G == 1:
+        xs = shard_act(xs, "experts", "expert_cap", None)
     g = bmm_f32(xs, params["w_gate"])
     u = bmm_f32(xs, params["w_up"])
     h = (F.silu(g) * u).to(xe.dtype)
-    ye = bmm_f32(h, params["w_down"]).view(E, G, C, d).transpose(0, 1)
+    if G == 1:
+        h = shard_act(h, "experts", "expert_cap", None)
+    ye = reshape(bmm_f32(h, params["w_down"]), E, G, C, d).transpose(0, 1)
     return ye * gate[..., None]
+
+
+def _gather_slots(xf: torch.Tensor, tok: torch.Tensor,
+                  valid: torch.Tensor) -> torch.Tensor:
+    """The tokens of every slot, [G, E, C, d], zero in an invalid slot."""
+    rows = torch.arange(xf.shape[0], device=xf.device)[:, None, None]
+    return xf[rows, tok].masked_fill(~valid[..., None], 0)
+
+
+def _combine(ye: torch.Tensor, tok: torch.Tensor, Tg: int) -> torch.Tensor:
+    """Each slot's output ``ye`` [G, E, C, d] added back in fp32 to its
+    token ``tok`` [G, E, C] of the group's ``Tg``: [G * Tg, d]."""
+    G, d = ye.shape[0], ye.shape[-1]
+    rows = torch.arange(G, device=ye.device)[:, None, None]
+    y = torch.zeros(G * Tg, d, dtype=torch.float32, device=ye.device)
+    y.index_add_(0, (tok + Tg * rows).reshape(-1), ye.reshape(-1, d))
+    return y
 
 
 def moe(params: Mapping[str, torch.Tensor], x: torch.Tensor, *,
@@ -116,13 +147,15 @@ def moe(params: Mapping[str, torch.Tensor], x: torch.Tensor, *,
     G = n_groups if (n_groups > 1 and T % n_groups == 0
                      and T // n_groups >= top_k) else 1
     Tg = T // G
-    xf = x.reshape(G, Tg, d)
+    xf = reshape(x, G, Tg, d)
+    if G > 1:
+        xf = shard_act(xf, "batch", None, None)
     gate_vals, expert_ids, aux = route(params["router"], xf, top_k)
     cap = capacity(Tg, top_k, n_experts, capacity_factor)
-    tok, valid, gate = dispatch(expert_ids, gate_vals, n_experts, cap)
-    rows = torch.arange(G, device=x.device)[:, None, None]
-    xe = xf[rows, tok].masked_fill(~valid[..., None], 0)       # [G,E,C,d]
+    tok, valid, gate = on_replicated(dispatch, expert_ids, gate_vals,
+                                     n_experts, cap)
+    xe = on_replicated(_gather_slots, xf, tok, valid)          # [G,E,C,d]
     ye = expert_ffn(params, xe, gate)
-    y = torch.zeros(G * Tg, d, dtype=torch.float32, device=x.device)
-    y.index_add_(0, (tok + Tg * rows).reshape(-1), ye.reshape(-1, d))
-    return y.view(B, S, d).to(x.dtype), aux
+    y = on_replicated(_combine, ye, tok, Tg)
+    y = reshape(y, B, S, d).to(x.dtype)
+    return shard_act(y, "batch", "seq", "act_embed"), aux

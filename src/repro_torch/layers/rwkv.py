@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import reshape, shard_act
 from repro_torch.layers.linear import linear
 from repro_torch.layers.norm import groupnorm_heads
 
@@ -64,19 +65,19 @@ def wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rounding apart, the same values)."""
     B, T, H, P = r.shape
     S = (torch.zeros((B * H, P, P), dtype=torch.float32, device=r.device)
-         if state is None else state.reshape(B * H, P, P))
+         if state is None else reshape(state, B * H, P, P))
     bonus = torch.sum(r * u * k, dim=-1, keepdim=True) * v
     # [T, B*H, P] so that each step reads contiguous rows
-    rt, kt, vt, wt = (a.permute(1, 0, 2, 3).reshape(T, B * H, P)
+    rt, kt, vt, wt = (reshape(a.permute(1, 0, 2, 3), T, B * H, P)
                       for a in (r, k, v, w))
     ys = []
     for t in range(T):
         ys.append(torch.bmm(rt[t, :, None, :], S))
         S = torch.baddbmm(wt[t, :, :, None] * S, kt[t, :, :, None],
                           vt[t, :, None, :])
-    y = torch.cat(ys, dim=1).view(B * H, T, P)
-    y = y.view(B, H, T, P).transpose(1, 2) + bonus
-    return y, S.view(B, H, P, P)
+    y = reshape(torch.cat(ys, dim=1), B * H, T, P)
+    y = reshape(y, B, H, T, P).transpose(1, 2) + bonus
+    return y, reshape(S, B, H, P, P)
 
 
 def rwkv6_time_mix(params, x: torch.Tensor, *, head_dim: int = 64,
@@ -92,16 +93,18 @@ def rwkv6_time_mix(params, x: torch.Tensor, *, head_dim: int = 64,
     xprev = _token_shift(x, tm_prev)
     xr, xk, xv, xw, xg = (_mix(x, xprev, params[f"mu_{n}"])
                           for n in ("r", "k", "v", "w", "g"))
-    r = linear(params["wr"], xr).view(B, S, H, head_dim)
-    k = linear(params["wk"], xk).view(B, S, H, head_dim)
-    v = linear(params["wv"], xv).view(B, S, H, head_dim)
+    r = reshape(linear(params["wr"], xr), B, S, H, head_dim)
+    k = reshape(linear(params["wk"], xk), B, S, H, head_dim)
+    v = reshape(linear(params["wv"], xv), B, S, H, head_dim)
     g = linear(params["wg"], xg)
-    w = _decay(params, xw).view(B, S, H, head_dim)
+    w = reshape(_decay(params, xw), B, S, H, head_dim)
+    r, k, v, w = (shard_act(a, "batch", "seq", "act_heads", None)
+                  for a in (r, k, v, w))
     y, new_state = wkv_scan(r.float(), k.float(), v.float(), w,
                             params["u"].float(), wkv_state)
     y = groupnorm_heads(y.to(x.dtype), params["ln_x_scale"],
                         params["ln_x_bias"])
-    y = y.reshape(B, S, D) * F.silu(g.float()).to(x.dtype)
+    y = reshape(y, B, S, D) * F.silu(g.float()).to(x.dtype)
     out = linear(params["wo"], y)
     if return_state:
         return out, x[:, -1, :], new_state
@@ -119,6 +122,7 @@ def rwkv6_channel_mix(params, x: torch.Tensor, *,
     xr = _mix(x, xprev, params["mu_cr"])
     k = linear(params["ck"], xk)
     k = torch.square(torch.relu(k.float())).to(x.dtype)
+    k = shard_act(k, "batch", "seq", "act_mlp")
     kv = linear(params["cv"], k)
     out = torch.sigmoid(linear(params["cr"], xr).float()).to(x.dtype) * kv
     if return_state:

@@ -19,6 +19,7 @@ from typing import Mapping, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import reshape, shard_act
 from repro_torch.layers.linear import linear
 from repro_torch.layers.norm import rmsnorm
 
@@ -89,10 +90,10 @@ def ssd_chunked(
     if L % chunk:
         chunk = L                    # degenerate small-sequence case
     nC = L // chunk
-    xc = x.reshape(B, nC, chunk, H, P).float()
-    dAc = dA.reshape(B, nC, chunk, H).permute(0, 3, 1, 2).float()  # [B,H,C,Lc]
-    Bc = Bmat.reshape(B, nC, chunk, N).float()
-    Cc = Cmat.reshape(B, nC, chunk, N).float()
+    xc = reshape(x, B, nC, chunk, H, P).float()
+    dAc = reshape(dA, B, nC, chunk, H).permute(0, 3, 1, 2).float()  # B,H,C,Lc
+    Bc = reshape(Bmat, B, nC, chunk, N).float()
+    Cc = reshape(Cmat, B, nC, chunk, N).float()
 
     Acs = torch.cumsum(dAc, dim=-1)                            # [B,H,C,Lc]
     Lmat = torch.exp(_segsum(dAc))                             # [B,H,C,Lc,Lc]
@@ -122,7 +123,7 @@ def ssd_chunked(
     # inter-chunk contribution
     y_off = torch.einsum("bcln,bhcpn->bclhp", Cc, prev_states)
     y_off = y_off * torch.exp(Acs).permute(0, 2, 3, 1)[..., None]
-    y = (y_diag + y_off).reshape(B, L, H, P)
+    y = reshape(y_diag + y_off, B, L, H, P)
     return y, s
 
 
@@ -143,15 +144,16 @@ def mamba2(params: Mapping, x: torch.Tensor, *, head_dim: int = 64,
     d_inner = xi.shape[-1]
     H = d_inner // head_dim
     xi, _ = _causal_conv(xi, params["conv_w"], params["conv_b"])
+    xi = shard_act(xi, "batch", "seq", "act_mlp")
     Bmat, Cmat = linear(params["wBC"], x).float().chunk(2, dim=-1)
     dt = _softplus(linear(params["wdt"], x).float()
                    + params["dt_bias"].float())          # [B, L, H]
     A = -torch.exp(params["A_log"].float())               # [H]
-    xh = xi.reshape(B, L, H, head_dim)
+    xh = reshape(xi, B, L, H, head_dim)
     xdt = xh.float() * dt[..., None]
     y, _ = ssd_chunked(xdt, dt * A, Bmat, Cmat, chunk=chunk)
     y = y + params["D"].float()[:, None] * xh.float()
-    y = y.reshape(B, L, d_inner).to(x.dtype)
+    y = reshape(y, B, L, d_inner).to(x.dtype)
     return _gate_norm_out(params, y, z, x)
 
 
@@ -184,12 +186,12 @@ def mamba2_decode(params: Mapping, x: torch.Tensor, ssm_state: torch.Tensor,
     dt = _softplus(linear(params["wdt"], x).float()
                    + params["dt_bias"].float())[:, 0]     # [B, H]
     A = -torch.exp(params["A_log"].float())
-    xh = xi.reshape(B, H, head_dim).float()
+    xh = reshape(xi, B, H, head_dim).float()
     dA = torch.exp(dt * A)                                # [B, H]
     new_state = (ssm_state.float() * dA[..., None, None]
                  + torch.einsum("bhp,bn->bhpn", xh * dt[..., None],
                                 Bmat[:, 0]))
     y = torch.einsum("bhpn,bn->bhp", new_state, Cmat[:, 0])
     y = y + params["D"].float()[:, None] * xh
-    y = y.reshape(B, 1, d_inner).to(x.dtype)
+    y = reshape(y, B, 1, d_inner).to(x.dtype)
     return _gate_norm_out(params, y, z, x), new_state, conv_state.float()

@@ -19,7 +19,7 @@ from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core.emit import DeviceLike
-from repro_torch.dist.sharding import ParamSpec
+from repro_torch.dist.sharding import ParamSpec, shard_act
 from repro_torch.layers.linear import (
     matmul_f32,
     quantize_weight,
@@ -170,6 +170,82 @@ def is_paged_state_key(name: str) -> bool:
     return name in PAGED_STATE_KEYS
 
 
+def paged_state_specs(sspecs: Mapping[str, ParamSpec], page_count: int,
+                      page_size: int) -> Dict[str, ParamSpec]:
+    """The reference's ``paged_state_specs``: every self-attention KV leaf
+    (and its ``draft_`` twin) ``[..., batch, max_len, KV, hd]`` becomes the
+    shared pool ``[..., page_count, page_size, KV, hd]``, both new axes
+    replicated (logical None: pages are shared between slots and buckets),
+    head and head-dim axes kept; every other leaf passes as it is."""
+    out = {}
+    for name, s in sspecs.items():
+        if not is_paged_state_key(name):
+            out[name] = s
+            continue
+        b = s.logical.index("batch")
+        q = s.logical.index("seq")
+        if q != b + 1:
+            raise ValueError(f"{name}: batch and seq axes not adjacent in "
+                             f"{s.logical}")
+        shape = s.shape[:b] + (page_count, page_size) + s.shape[q + 1:]
+        logical = s.logical[:b] + (None, None) + s.logical[q + 1:]
+        out[name] = ParamSpec(shape, logical, s.dtype, "zeros")
+    return out
+
+
+def spec_state_specs(sspecs: Mapping[str, ParamSpec], draft_layers: int,
+                     prefix: str = DRAFT_PREFIX) -> Dict[str, ParamSpec]:
+    """The reference's ``spec_state_specs``: a ``draft_`` twin of every
+    leaf, its first "layers" dim cut to ``draft_layers`` (the KV of the
+    layer-prefix draft)."""
+    out = {}
+    for name, s in sspecs.items():
+        li = s.logical.index("layers")
+        shape = s.shape[:li] + (draft_layers,) + s.shape[li + 1:]
+        out[prefix + name] = ParamSpec(shape, s.logical, s.dtype, s.init)
+    return out
+
+
+def state_specs(model, batch: int, max_len: int,
+                paged: Optional[Tuple[int, int]] = None,
+                only: Optional[str] = None,
+                draft_layers: int = 0) -> Dict[str, ParamSpec]:
+    """The specs of the state ``model.decode_state`` allocates for the same
+    arguments, in the reference's layout: ``decode_state_specs``, the
+    draft's twins (``spec_state_specs``) and the page pool
+    (``paged_state_specs``), ``only`` picking the pool or the per-slot
+    half, as the reference's ``fresh_decode_state`` builds them."""
+    sspecs = model.decode_state_specs(batch, max_len)
+    if draft_layers:
+        sspecs = dict(sspecs, **spec_state_specs(sspecs, draft_layers))
+    if paged is not None:
+        sspecs = paged_state_specs(sspecs, *paged)
+        if only is not None:
+            sspecs = {k: s for k, s in sspecs.items()
+                      if is_paged_state_key(k) == (only == "pool")}
+    return sspecs
+
+
+def port_layout(spec: ParamSpec, shape: Tuple[int, ...]) -> ParamSpec:
+    """``spec`` laid out as the port's leaf of ``shape``: where the port
+    flattens the reference's leading stacked dims (the hybrid's ``[G, E,
+    ...]`` SSM and conv states, the vision LM's ``[n_super,
+    self_per_block, ...]`` KV caches) their "layers" axes merge into one,
+    which no mode shards; raises if the shapes do not agree."""
+    n = len(spec.shape) - len(shape)
+    if n > 0 and spec.logical[:n + 1] == ("layers",) * (n + 1):
+        lead = 1
+        for size in spec.shape[:n + 1]:
+            lead *= size
+        spec = ParamSpec((lead,) + spec.shape[n + 1:],
+                         ("layers",) + spec.logical[n + 1:], spec.dtype,
+                         spec.init)
+    if tuple(spec.shape) != tuple(shape):
+        raise ValueError(f"state spec {spec.shape} does not lay out a leaf "
+                         f"of shape {tuple(shape)}")
+    return spec
+
+
 def split_spec_state(state: Mapping[str, torch.Tensor]
                      ) -> Tuple[Dict[str, torch.Tensor],
                                 Dict[str, torch.Tensor]]:
@@ -308,8 +384,11 @@ def decode_block_head_logits(head_w: torch.Tensor, x: torch.Tensor,
 def _chunk_ce(head_w: torch.Tensor, x: torch.Tensor,
               labels: torch.Tensor) -> torch.Tensor:
     """Summed next-token CE of one chunk: fp32 logits, logsumexp minus the
-    gold logit."""
-    logits = matmul_f32(x, head_w)
+    gold logit. Under a sharding context the logits' vocab dim is
+    replicated first (a port constraint the reference does not have:
+    DTensor's gather over a vocab-sharded dim leaves a mask it cannot
+    reduce on some meshes); outside one this is the plain product."""
+    logits = shard_act(matmul_f32(x, head_w), "batch", "seq", None)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return torch.sum(lse - gold)

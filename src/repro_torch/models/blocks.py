@@ -10,6 +10,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch.dist.sharding import shard_act
 from repro_torch.layers.attention import (
     block_decode_self_attention,
     cross_attention,
@@ -155,9 +156,9 @@ class AttnBlock(nn.Module):
             n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
             rope_theta=cfg.rope_theta, q_chunk=cfg.q_chunk,
         )
-        x = x + h
+        x = shard_act(x + h, "batch", "seq", "act_embed")
         h, aux = self.ffn_part(rmsnorm(self.ln2, x), cfg)
-        return x + h, aux
+        return shard_act(x + h, "batch", "seq", "act_embed"), aux
 
     def decode(self, x: torch.Tensor, cache_k: torch.Tensor,
                cache_v: torch.Tensor, pos: Optional[int], cfg: ArchConfig, *,
@@ -224,7 +225,7 @@ class CrossBlock(nn.Module):
             n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
             memory_valid=memory_valid, q_chunk=cfg.q_chunk,
         )
-        return self._gated(x, h)
+        return shard_act(self._gated(x, h), "batch", "seq", "act_embed")
 
     def decode(self, x: torch.Tensor, cross_k: torch.Tensor,
                cross_v: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:

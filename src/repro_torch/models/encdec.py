@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.emit import DeviceLike, resolve_device
+from repro_torch.dist.sharding import ParamSpec, serving, shard_act
 from repro_torch.layers.attention import (
     cross_attention,
     decode_cross_attention,
@@ -66,6 +67,10 @@ class EncDecBlock(nn.Module):
 
     def mlp_part(self, x: torch.Tensor) -> torch.Tensor:
         return x + mlp(self.ffn, layernorm(self.ln2, x), act="gelu")
+
+    def layer_out(self, x: torch.Tensor) -> torch.Tensor:
+        """The MLP part, then a prefill layer's output constraint."""
+        return shard_act(self.mlp_part(x), "batch", "seq", "act_embed")
 
 
 class EncDecLM(PortedLM, nn.Module):
@@ -114,7 +119,7 @@ class EncDecLM(PortedLM, nn.Module):
         x = x + self_attention(blk.attn, layernorm(blk.ln1, x), positions,
                                causal=False, q_chunk=self.cfg.q_chunk,
                                **self._heads())
-        return blk.mlp_part(x)
+        return blk.layer_out(x)
 
     def _dec_layer(self, x: torch.Tensor, blk: EncDecBlock,
                    positions: torch.Tensor,
@@ -124,13 +129,13 @@ class EncDecLM(PortedLM, nn.Module):
                                causal=True, q_chunk=q_chunk, **self._heads())
         x = x + cross_attention(blk.xattn, layernorm(blk.ln_x, x), memory,
                                 q_chunk=q_chunk, **self._heads())
-        return blk.mlp_part(x)
+        return blk.layer_out(x)
 
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
         """The memory [B, S, d] of frame embeddings [B, S, d]; each layer
         is checkpointed under ``cfg.remat`` while autograd records."""
         B, S, _ = frames.shape
-        x = frames
+        x = shard_act(frames, "batch", "seq", "act_embed")
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
         for blk in self.enc_blocks:
             x = remat(self._enc_layer, x, blk, positions,
@@ -150,14 +155,15 @@ class EncDecLM(PortedLM, nn.Module):
                       enabled=self.cfg.remat)
         return layernorm(self.ln_f, x)
 
-    @torch.inference_mode()
+    @serving
     def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Prefill entry point: fp32 logits [B, S_dec, V] for
         ``batch["tokens"]`` [B, S_dec] over ``batch["frames"]`` [B, S,
         d]."""
         memory = self.encode(batch["frames"])
         x = self.decode_stack(batch["tokens"], memory)
-        return matmul_f32(x, self.head["w"])
+        return shard_act(matmul_f32(x, self.head["w"]), "batch", "seq",
+                         "vocab")
 
     def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Training objective (fp32 scalar): the mean next-token
@@ -169,6 +175,21 @@ class EncDecLM(PortedLM, nn.Module):
         return lm_loss_chunked(self.head["w"], x, batch["labels"])
 
     # -- decode ---------------------------------------------------------------
+
+    def decode_state_specs(self, batch: int, max_len: int
+                           ) -> Dict[str, ParamSpec]:
+        """The reference's ``decode_state_specs``: the bf16 KV caches [L,
+        B, max_len, KV, hd] and cross caches [L, B, max(max_len //
+        dec_ratio, 128), KV, hd]."""
+        cfg = self.cfg
+        mem_len = max(max_len // cfg.dec_ratio, 128)
+        axes = ("layers", "batch", "seq", "cache_heads", "cache_hd")
+        lens = dict.fromkeys(PAGED_STATE_KEYS, max_len)
+        lens.update(dict.fromkeys(CROSS_STATE_KEYS, mem_len))
+        return {name: ParamSpec((cfg.n_layers, batch, n, cfg.n_kv,
+                                 cfg.head_dim), axes, torch.bfloat16,
+                                "zeros")
+                for name, n in lens.items()}
 
     def decode_state(self, batch: int, max_len: int,
                      paged: Optional[Tuple[int, int]] = None,
@@ -201,7 +222,7 @@ class EncDecLM(PortedLM, nn.Module):
                                   dtype=torch.bfloat16, device=self.device)
                 for name, s in shapes.items()}
 
-    @torch.inference_mode()
+    @serving
     def decode_step(self, state: Dict[str, torch.Tensor],
                     tokens: torch.Tensor, pos: int, *,
                     window_start: Optional[torch.Tensor] = None,

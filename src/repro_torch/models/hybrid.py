@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.emit import DeviceLike, resolve_device
+from repro_torch.dist.sharding import ParamSpec, serving, shard_act
 from repro_torch.layers.embedding import embed
 from repro_torch.layers.linear import matmul_f32
 from repro_torch.layers.norm import rmsnorm
@@ -136,6 +137,7 @@ class HybridModel(PortedLM, nn.Module):
             x = x + mamba2(layer.mamba, rmsnorm(layer.ln, x),
                            head_dim=cfg.ssm_head_dim,
                            d_state=cfg.ssm_state, chunk=cfg.ssd_chunk)
+            x = shard_act(x, "batch", "seq", "act_embed")
         x, _ = self.shared_attn(x, positions, cfg)
         return x
 
@@ -157,14 +159,40 @@ class HybridModel(PortedLM, nn.Module):
         x = self.backbone(batch["tokens"])
         return lm_loss_chunked(self.head["w"], x, batch["labels"])
 
-    @torch.inference_mode()
+    @serving
     def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Prefill entry point: fp32 logits [B, S, V] for ``batch["tokens"]``
         [B, S]."""
         x = self.backbone(batch["tokens"])
-        return matmul_f32(x, self.head["w"])
+        return shard_act(matmul_f32(x, self.head["w"]), "batch", "seq",
+                         "vocab")
 
     # -- decode ---------------------------------------------------------------
+
+    def decode_state_specs(self, batch: int, max_len: int
+                           ) -> Dict[str, ParamSpec]:
+        """The reference's ``decode_state_specs``, in its layout: ``ssm``
+        [G, E, B, H, P, N] and ``conv`` [G, E, B, 3, d_inner] in fp32 (the
+        port's leaves flatten [G, E] to one dim; ``models.base.port_layout``
+        maps one onto the other), the bf16 KV caches [G, B, max_len, KV,
+        hd]."""
+        cfg = self.cfg
+        G, E = self.n_groups, cfg.attn_every
+        H, P, N = self.d_inner // cfg.ssm_head_dim, cfg.ssm_head_dim, \
+            cfg.ssm_state
+        kv = ParamSpec((G, batch, max_len, cfg.n_kv, cfg.head_dim),
+                       ("layers", "batch", "seq", "cache_heads", "cache_hd"),
+                       torch.bfloat16, "zeros")
+        return {
+            "ssm": ParamSpec((G, E, batch, H, P, N),
+                             ("layers", "layers", "batch", "mlp", None, None),
+                             torch.float32, "zeros"),
+            "conv": ParamSpec((G, E, batch, D_CONV - 1, self.d_inner),
+                              ("layers", "layers", "batch", None, "act_mlp"),
+                              torch.float32, "zeros"),
+            "cache_k": kv,
+            "cache_v": kv,
+        }
 
     def decode_state(self, batch: int, max_len: int,
                      paged: Optional[Tuple[int, int]] = None,
@@ -201,7 +229,7 @@ class HybridModel(PortedLM, nn.Module):
                 for name in PAGED_STATE_KEYS})
         return state
 
-    @torch.inference_mode()
+    @serving
     def decode_step(self, state: Dict[str, torch.Tensor],
                     tokens: torch.Tensor, pos: int, *,
                     window_start: Optional[torch.Tensor] = None,

@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.emit import DeviceLike, resolve_device
+from repro_torch.dist.sharding import ParamSpec, serving, shard_act
 from repro_torch.layers.embedding import embed
 from repro_torch.layers.linear import matmul_f32
 from repro_torch.layers.norm import rmsnorm
@@ -76,12 +77,13 @@ class DecoderLM(PortedLM, nn.Module):
                 aux = aux + a
         return rmsnorm(self.ln_f, x), aux
 
-    @torch.inference_mode()
+    @serving
     def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Prefill entry point: fp32 logits [B, S, V] for ``batch["tokens"]``
         [B, S]."""
         x, _ = self.backbone(batch["tokens"])
-        return matmul_f32(x, self.head["w"])
+        return shard_act(matmul_f32(x, self.head["w"]), "batch", "seq",
+                         "vocab")
 
     def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Training objective (fp32 scalar): the mean next-token
@@ -94,6 +96,16 @@ class DecoderLM(PortedLM, nn.Module):
             + 0.01 * aux
 
     # -- decode ---------------------------------------------------------------
+
+    def decode_state_specs(self, batch: int, max_len: int
+                           ) -> Dict[str, ParamSpec]:
+        """The reference's ``decode_state_specs``: the bf16 KV cache
+        [L, B, max_len, KV, hd] by state key, with its logical axes."""
+        cfg = self.cfg
+        shape = (cfg.n_layers, batch, max_len, cfg.n_kv, cfg.head_dim)
+        axes = ("layers", "batch", "seq", "cache_heads", "cache_hd")
+        return {name: ParamSpec(shape, axes, torch.bfloat16, "zeros")
+                for name in PAGED_STATE_KEYS}
 
     def decode_state(self, batch: int, max_len: int,
                      paged: Optional[Tuple[int, int]] = None,
@@ -125,7 +137,7 @@ class DecoderLM(PortedLM, nn.Module):
                                   dtype=torch.bfloat16, device=self.device)
                 for name, n in layers.items()}
 
-    @torch.inference_mode()
+    @serving
     def decode_step(self, state: Dict[str, torch.Tensor],
                     tokens: torch.Tensor, pos: int, *,
                     window_start: Optional[torch.Tensor] = None,
@@ -146,7 +158,7 @@ class DecoderLM(PortedLM, nn.Module):
                                  pages=pages)
         return self.head_logits(rmsnorm(self.ln_f, x)), state
 
-    @torch.inference_mode()
+    @serving
     def decode_block(self, state: Dict[str, torch.Tensor],
                      tokens: torch.Tensor, local: torch.Tensor, *,
                      pages: Optional[PageView] = None,

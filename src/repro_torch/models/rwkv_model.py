@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.emit import DeviceLike, resolve_device
+from repro_torch.dist.sharding import ParamSpec, serving, shard_act
 from repro_torch.layers.embedding import embed
 from repro_torch.layers.linear import matmul_f32
 from repro_torch.layers.norm import layernorm
@@ -115,7 +116,8 @@ class RWKVModel(PortedLM, nn.Module):
     def _layer(self, x: torch.Tensor, layer: nn.Module) -> torch.Tensor:
         x = x + rwkv6_time_mix(layer.mix, layernorm(layer.ln1, x),
                                head_dim=self.head_dim)
-        return x + rwkv6_channel_mix(layer.mix, layernorm(layer.ln2, x))
+        x = x + rwkv6_channel_mix(layer.mix, layernorm(layer.ln2, x))
+        return shard_act(x, "batch", "seq", "act_embed")
 
     def backbone(self, tokens: torch.Tensor) -> torch.Tensor:
         """The normed hiddens [B, S, d] of ``tokens`` [B, S]; each layer is
@@ -133,13 +135,30 @@ class RWKVModel(PortedLM, nn.Module):
                                self.backbone(batch["tokens"]),
                                batch["labels"])
 
-    @torch.inference_mode()
+    @serving
     def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Prefill entry point: fp32 logits [B, S, V] for ``batch["tokens"]``
         [B, S]."""
-        return matmul_f32(self.backbone(batch["tokens"]), self.head["w"])
+        return shard_act(matmul_f32(self.backbone(batch["tokens"]),
+                                    self.head["w"]), "batch", "seq", "vocab")
 
     # -- decode (O(1) state, no KV cache) -------------------------------------
+
+    def decode_state_specs(self, batch: int, max_len: int
+                           ) -> Dict[str, ParamSpec]:
+        """The reference's ``decode_state_specs``: ``tm_prev`` and
+        ``cm_prev`` [L, B, D] bf16, ``wkv`` [L, B, H, P, P] fp32."""
+        L, D = self.cfg.n_layers, self.cfg.d_model
+        H, P = self.n_heads, self.head_dim
+        prev = ParamSpec((L, batch, D), ("layers", "batch", None),
+                         torch.bfloat16, "zeros")
+        return {
+            "tm_prev": prev,
+            "cm_prev": prev,
+            "wkv": ParamSpec((L, batch, H, P, P),
+                             ("layers", "batch", "act_heads", None, None),
+                             torch.float32, "zeros"),
+        }
 
     def decode_state(self, batch: int, max_len: int,
                      paged: Optional[Tuple[int, int]] = None,
@@ -167,15 +186,15 @@ class RWKVModel(PortedLM, nn.Module):
             "wkv": torch.zeros((L, batch, H, P, P), dtype=torch.float32, **kw),
         }
 
-    @torch.inference_mode()
+    @serving
     def decode_step(self, state: Dict[str, torch.Tensor],
                     tokens: torch.Tensor, pos: int, *,
                     window_start: Optional[torch.Tensor] = None,
                     pages: Optional[PageView] = None):
         """One token for every sequence: tokens [B] int. Writes every leaf
-        of ``state`` in place (the carried inputs rounded to bf16, as the
-        reference stores them) and returns ``(logits [B, V] fp32,
-        state)``. The recurrence is position-free and has no KV cache, so
+        of ``state`` in place (the carried inputs rounded to the state's
+        dtype: bf16, as the reference stores them) and returns ``(logits
+        [B, V] fp32, state)``. The recurrence is position-free and has no KV cache, so
         ``pos``, ``window_start`` and ``pages`` are unused."""
         del pos, window_start, pages
         tm, cm, wkv = state["tm_prev"], state["cm_prev"], state["wkv"]
@@ -189,7 +208,7 @@ class RWKVModel(PortedLM, nn.Module):
                 layer.mix, layernorm(layer.ln2, x), cm_prev=cm[i],
                 return_state=True)
             x = x + o
-            tm[i].copy_(tm_new.to(torch.bfloat16))
-            cm[i].copy_(cm_new.to(torch.bfloat16))
+            tm[i].copy_(tm_new)         # rounded to the state's dtype
+            cm[i].copy_(cm_new)
             wkv[i].copy_(s)
         return self.head_logits(layernorm(self.ln_f, x)), state

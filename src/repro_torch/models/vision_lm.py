@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.emit import DeviceLike, resolve_device
+from repro_torch.dist.sharding import ParamSpec, reshape, serving, shard_act
 from repro_torch.layers.embedding import embed
 from repro_torch.layers.linear import linear, matmul_f32
 from repro_torch.layers.norm import rmsnorm
@@ -100,6 +101,7 @@ class VisionLM(PortedLM, nn.Module):
         B, S = tokens.shape
         x = embed(self.embed, tokens)
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+        vision = shard_act(vision, "batch", "seq", "act_embed")
         for group, cross in zip(self.self_blocks, self.cross_blocks):
             x = remat(self._superblock, x, group, cross, positions, vision,
                       enabled=self.cfg.remat)
@@ -112,12 +114,13 @@ class VisionLM(PortedLM, nn.Module):
             x, _ = blk(x, positions, self.cfg)
         return cross(x, vision, self.cfg)
 
-    @torch.inference_mode()
+    @serving
     def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Prefill entry point: fp32 logits [B, S, V] for ``batch["tokens"]``
         [B, S] over ``batch["vision"]`` [B, M, d]."""
         x = self.backbone(batch["tokens"], batch["vision"])
-        return matmul_f32(x, self.head["w"])
+        return shard_act(matmul_f32(x, self.head["w"]), "batch", "seq",
+                         "vocab")
 
     def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Training objective (fp32 scalar): the mean next-token
@@ -127,6 +130,23 @@ class VisionLM(PortedLM, nn.Module):
         return lm_loss_chunked(self.head["w"], x, batch["labels"])
 
     # -- decode ---------------------------------------------------------------
+
+    def decode_state_specs(self, batch: int, max_len: int
+                           ) -> Dict[str, ParamSpec]:
+        """The reference's ``decode_state_specs``, in its layout: the bf16
+        KV caches [n_super, self_per_block, B, max_len, KV, hd] (the port's
+        leaves flatten the two stacked dims; ``models.base.port_layout``)
+        and cross caches [n_super, B, n_image_tokens, KV, hd]."""
+        cfg = self.cfg
+        kv = ParamSpec((self.n_super, self.self_per_block, batch, max_len,
+                        cfg.n_kv, cfg.head_dim),
+                       ("layers", "layers", "batch", "seq", "cache_heads",
+                        "cache_hd"), torch.bfloat16, "zeros")
+        xkv = ParamSpec((self.n_super, batch, cfg.n_image_tokens, cfg.n_kv,
+                         cfg.head_dim),
+                        ("layers", "batch", "seq", "cache_heads",
+                         "cache_hd"), torch.bfloat16, "zeros")
+        return {"cache_k": kv, "cache_v": kv, "cross_k": xkv, "cross_v": xkv}
 
     def decode_state(self, batch: int, max_len: int,
                      paged: Optional[Tuple[int, int]] = None,
@@ -160,7 +180,7 @@ class VisionLM(PortedLM, nn.Module):
                                   dtype=torch.bfloat16, device=self.device)
                 for name, s in shapes.items()}
 
-    @torch.inference_mode()
+    @serving
     def init_cross_cache(self, vision: torch.Tensor
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Every superblock's cross-attention keys and values of the patch
@@ -172,13 +192,13 @@ class VisionLM(PortedLM, nn.Module):
 
         def project(w):
             return torch.stack([
-                linear(blk.xattn[w], vision).reshape(B, M, cfg.n_kv,
-                                                     cfg.head_dim)
+                reshape(linear(blk.xattn[w], vision), B, M, cfg.n_kv,
+                        cfg.head_dim)
                 for blk in self.cross_blocks])
 
         return project("wk"), project("wv")
 
-    @torch.inference_mode()
+    @serving
     def decode_step(self, state: Dict[str, torch.Tensor],
                     tokens: torch.Tensor, pos: int, *,
                     window_start: Optional[torch.Tensor] = None,

@@ -22,19 +22,35 @@ and places parameters there as DTensors on request:
     plan.param_placements()                # {leaf key: DTensor placements}
     plan.shard_params(model)               # {parameter name: DTensor}
 
-Executing a model whose parameters are sharded over several ranks is
-not ported yet (ROADMAP Queue 1 item 2, part 2): the steps run on the
-plan's device.
+and runs sharded over them, one stage (every rank of the mesh runs the
+whole stack, as the reference's GSPMD program does):
+
+    model = plan.init_params(seed=0, shard=True)   # DTensor parameters
+    with plan.activate():                  # shard_act lays activations out
+        logits = model.forward({"tokens": tokens})
+        state = plan.fresh_decode_state(8, 64)     # placed by its specs
+
+A staged plan (``pipeline_stages`` > 1 with ``layers -> data``) cannot
+be placed yet (ROADMAP Queue 1 item 2, part 2b).
 """
 
 from __future__ import annotations
 
+import math
+from contextlib import contextmanager
 from typing import Any, Dict, Optional, Union
 
 import torch
 
 from repro_torch.core.emit import DeviceLike
-from repro_torch.dist.sharding import PartitionSpec, pspec_to_placements
+from repro_torch.dist.sharding import (
+    PartitionSpec,
+    implicit_replication,
+    local_value,
+    pspec_to_placements,
+    sharding_ctx,
+    spec_to_pspec,
+)
 from repro_torch.launch.steps import (
     make_masked_decode_step,
     make_prefill_decode_step,
@@ -42,7 +58,14 @@ from repro_torch.launch.steps import (
     make_serve_step,
     make_train_step,
 )
-from repro_torch.models.base import SHAPES, ArchConfig, ShapeSpec, build_model
+from repro_torch.models.base import (
+    SHAPES,
+    ArchConfig,
+    ShapeSpec,
+    build_model,
+    port_layout,
+    state_specs,
+)
 from repro_torch.optim.compression import MULTI_GPU_ITEM
 from repro_torch.plan.ir import MeshSpec, PlanIR
 from repro_torch.plan.passes import (
@@ -63,6 +86,7 @@ class ExecutionPlan:
         self._model = None
         self._optimizer = None
         self._built_any = False
+        self.sharded = False
 
     # -- resolved views -------------------------------------------------------
 
@@ -113,6 +137,18 @@ class ExecutionPlan:
             self._optimizer = make_optimizer(self.cfg.optimizer)
         return self._optimizer
 
+    @contextmanager
+    def activate(self):
+        """Run sharded: ``sharding_ctx(mesh, rules)`` for this thread, so
+        every ``shard_act`` lays its activation out on the plan's mesh, and
+        DTensor's implicit replication, so the plain tensors the layers
+        make (positions, masks, RoPE tables, a step's token lanes) meet
+        DTensors as replicated ones (the counterpart of the reference's
+        ``with mesh, sharding_ctx(...)``). The replication switch is
+        process-wide, so a backward must run inside the context too."""
+        with sharding_ctx(self.mesh, self.rules), implicit_replication():
+            yield self
+
     # -- parameters / placement ----------------------------------------------
 
     def param_specs(self):
@@ -150,8 +186,8 @@ class ExecutionPlan:
             raise ValueError(f"model on {model.device}, mesh on "
                              f"{mesh.device_type}")
         placements = self.param_placements()
-        params = dict(model.named_parameters())
-        for grp in leaf_groups(model):
+        members = []           # every group's member placements, checked
+        for grp in leaf_groups(model):   # before the first is placed
             nstack = len(grp.stack)
             member = []
             for p in placements[leaf_key(grp.name)]:
@@ -163,21 +199,62 @@ class ExecutionPlan:
                             f"of a staged leaf is {MULTI_GPU_ITEM}")
                     p = Shard(p.dim - nstack)
                 member.append(p)
-            for name in grp.members:
-                yield name, distribute_tensor(params[name].detach(), mesh,
-                                              member)
+            members.append((grp.members, member))
+        params = dict(model.named_parameters())
+        for names, member in members:
+            for name in names:
+                yield name, distribute_tensor(params.pop(name).detach(),
+                                              mesh, member)
 
     def shard_params(self, model=None) -> Dict[str, Any]:
         """``{parameter name: DTensor}``: :meth:`iter_shard_params` at once."""
         return dict(self.iter_shard_params(model))
 
+    def shard_model(self, model=None):
+        """Install the sharded parameters into ``model`` (default: the
+        plan's): each parameter is replaced by its DTensor from
+        :meth:`iter_shard_params`, one at a time, so the plain tensor is
+        freed (unless the caller holds it) before the next is placed, and
+        the peak grows by at most one parameter. The int8 weight copies are
+        dropped and remade from the DTensors. Steps then run sharded under
+        :meth:`activate`. Returns the model."""
+        from torch import nn
+
+        model = self.model if model is None else model
+        for name, dt in self.iter_shard_params(model):
+            parent, leaf = name.rsplit(".", 1)
+            setattr(model.get_submodule(parent), leaf,
+                    nn.Parameter(dt, requires_grad=False))
+        model.reset_quantized()
+        self.sharded = True
+        return model
+
+    def unshard_model(self, model=None):
+        """The inverse of :meth:`shard_model`: each DTensor parameter is
+        replaced by its whole value as a plain tensor on this rank
+        (gathered, one parameter at a time). Returns the model."""
+        from torch import nn
+
+        model = self.model if model is None else model
+        for name, p in list(model.named_parameters()):
+            parent, leaf = name.rsplit(".", 1)
+            setattr(model.get_submodule(parent), leaf,
+                    nn.Parameter(local_value(p.detach()),
+                                 requires_grad=False))
+        model.reset_quantized()
+        self.sharded = False
+        return model
+
     # -- parameters / state ---------------------------------------------------
 
-    def init_params(self, seed: int = 0):
+    def init_params(self, seed: int = 0, shard: Optional[bool] = None):
         """Random parameters on the plan's device (demos, benchmarks,
-        tests); calibrates the quantization shifts. Returns the model."""
+        tests); calibrates the quantization shifts. With ``shard`` (by
+        default when the mesh has more than one device) the parameters
+        are then placed on the mesh (:meth:`shard_model`). Returns the
+        model."""
         model = build_model(self.cfg, device=self.device).init_params(seed)
-        return self._install(model)
+        return self._install(model, shard)
 
     def init_train_state(self, seed: int = 0):
         """``(model, optimizer state)`` ready for the train step: random
@@ -190,11 +267,12 @@ class ExecutionPlan:
                                         leaf_groups(model))
         return model, opt_state
 
-    def load_params(self, params):
+    def load_params(self, params, shard: Optional[bool] = None):
         """Install a ported model (``DecoderLM``, ``HybridModel``) or the
         reference's parameter tree as numpy arrays (see
-        ``repro_torch.bridge.model_from_arrays``), then calibrate. Returns
-        the model."""
+        ``repro_torch.bridge.model_from_arrays``), then calibrate, then
+        place it on the mesh with ``shard`` (as :meth:`init_params`).
+        Returns the model."""
         from repro_torch.models.base import PortedLM
 
         if not isinstance(params, PortedLM):
@@ -204,13 +282,18 @@ class ExecutionPlan:
         if params.device != self.device:
             raise ValueError(f"model is on {params.device}, the plan on "
                              f"{self.device}")
-        return self._install(params)
+        return self._install(params, shard)
 
-    def _install(self, model):
+    def _install(self, model, shard: Optional[bool] = None):
         model.cfg = self.cfg
         model.reset_quantized()
         self._model = model
+        self.sharded = False
         self.calibrate()
+        if shard is None:        # by default when the mesh has several
+            shard = math.prod(self.ir.axes.values()) > 1
+        if shard:
+            self.shard_model(model)
         return model
 
     def fresh_decode_state(self, batch: int, max_len: int, paged=None,
@@ -223,10 +306,41 @@ class ExecutionPlan:
         (bucket-independent: the StatePool builds them once), ``"dense"``
         the per-slot remainder. With ``spec=(spec_k, draft_layers)`` the
         state also carries the draft's ``draft_`` KV twins (pooled too
-        when paged: they ride the slot's page table)."""
-        return self.model.decode_state(
-            batch, max_len, paged=paged, only=only,
-            draft_layers=spec[1] if spec is not None else 0)
+        when paged: they ride the slot's page table).
+
+        On a sharded model every leaf is placed on the mesh by its spec
+        (the reference's ``decode_state_specs``, ``paged_state_specs``
+        and ``spec_state_specs``, in the port's layout): the KV caches'
+        batch on the data axis and heads on the model axis, the page
+        pool's page axes replicated."""
+        draft_layers = spec[1] if spec is not None else 0
+        state = self.model.decode_state(batch, max_len, paged=paged,
+                                        only=only, draft_layers=draft_layers)
+        if not self.sharded:
+            return state
+        return self._place_state(state, state_specs(
+            self.model, batch, max_len, paged=paged, only=only,
+            draft_layers=draft_layers))
+
+    def _place_state(self, state: Dict[str, torch.Tensor],
+                     specs: Dict[str, Any]) -> Dict[str, Any]:
+        """``{key: DTensor}``: each leaf of ``state`` placed on the mesh by
+        the PartitionSpec of its spec in ``specs`` (``models.base``'s
+        reference-layout specs, laid out as the port's leaf)."""
+        from torch.distributed.tensor import distribute_tensor
+
+        if set(specs) != set(state):
+            raise KeyError(f"state leaves {sorted(state)} != specs "
+                           f"{sorted(specs)}")
+        mesh = self.mesh
+        out = {}
+        for name, leaf in state.items():
+            spec = port_layout(specs[name], tuple(leaf.shape))
+            out[name] = distribute_tensor(
+                leaf, mesh,
+                pspec_to_placements(spec_to_pspec(spec, mesh, self.rules),
+                                    mesh))
+        return out
 
     # -- quantization calibration ---------------------------------------------
 
@@ -351,8 +465,9 @@ class ExecutionPlan:
 
     @staticmethod
     def token_argmax(logits: torch.Tensor) -> torch.Tensor:
-        """Greedy token selection: int32 argmax over the vocab."""
-        return torch.argmax(logits, dim=-1).to(torch.int32)
+        """Greedy token selection: int32 argmax over the vocab, a plain
+        tensor (a sharded model's logits are gathered first)."""
+        return local_value(torch.argmax(logits, dim=-1)).to(torch.int32)
 
     def make_batcher(self, policy=None, **kw):
         """A ServeBatcher whose steps all come from this plan."""

@@ -40,6 +40,7 @@ from typing import Deque, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.dist.sharding import serving
 from repro_torch.models.base import ArchConfig
 from repro_torch.serve.cache import CachedExecutable, ExecutableCache
 from repro_torch.serve.state_pool import StatePool
@@ -382,7 +383,7 @@ class ServeBatcher:
 
     # -- dispatch -------------------------------------------------------------
 
-    @torch.inference_mode()
+    @serving
     def run(self) -> Dict[str, RequestResult]:
         """Drain the queue: group -> dispatch until empty, or hand the
         whole queue to the continuous scheduler."""

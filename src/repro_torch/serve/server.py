@@ -27,14 +27,18 @@ scheduler:
   stops the worker; later submissions raise it too.
 
 One worker thread owns ALL batcher and scheduler calls. Grad mode is
-thread-local, so the worker enters ``torch.inference_mode()`` itself, and
-it makes the plan's card the current device before it launches anything.
+thread-local, so the worker enters the serve path's grad mode itself
+(``torch.inference_mode()``, or ``torch.no_grad()`` under a sharded plan,
+whose ``activate()`` context it enters too: that context is thread-local
+as well), and it makes the plan's card the current device before it
+launches anything.
 """
 
 from __future__ import annotations
 
 import asyncio
 import collections
+import contextlib
 import dataclasses
 import queue
 import threading
@@ -43,6 +47,7 @@ from typing import AsyncIterator, Deque, Dict, List, Optional
 
 import torch
 
+from repro_torch.dist.sharding import serving_grad_mode
 from repro_torch.serve.batcher import (
     DecodeRequest,
     RequestResult,
@@ -225,10 +230,13 @@ class AsyncServeServer:
     # -- worker thread --------------------------------------------------------
 
     def _worker(self) -> None:
-        device = self.batcher.plan.device
-        if device.type == "cuda":
-            torch.cuda.set_device(device)
-        with torch.inference_mode():
+        plan = self.batcher.plan
+        if plan.device.type == "cuda":
+            torch.cuda.set_device(plan.device)
+        with contextlib.ExitStack() as stack:
+            if plan.sharded:
+                stack.enter_context(plan.activate())
+            stack.enter_context(serving_grad_mode())
             try:
                 self._serve()
             except BaseException as exc:    # reaches every open stream

@@ -38,6 +38,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.dist.sharding import serving_grad_mode
 from repro_torch.models.base import (
     is_paged_state_key,
     state_batch_axes,
@@ -116,7 +117,7 @@ class StatePool:
                                                  paged=self.paged, only=only,
                                                  spec=self.spec)
         else:
-            with torch.inference_mode():
+            with serving_grad_mode():
                 for leaf in state.values():
                     leaf.zero_()
         if self.paged is not None:
@@ -140,7 +141,7 @@ class StatePool:
                              f"batch of {batch}")
         if state:
             device = next(iter(state.values())).device
-            with torch.inference_mode():
+            with serving_grad_mode():
                 wipe_state_slots(state, mask.to(device),
                                  state_batch_axes(state,
                                                   self.paged is not None))

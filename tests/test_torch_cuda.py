@@ -822,3 +822,42 @@ def test_shard_params_on_the_card_mesh(cuda, mode):
     assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
     with pytest.raises(RuntimeError, match="need 8 devices, have 1"):
         build_plan("yi-6b", None, debug=True, mesh_spec=MeshSpec.debug(2, 4))
+
+
+def test_sharded_model_through_both_kernels_on_the_card_mesh(cuda):
+    """The reduced yi-6b's megatron_sp DTensors on the 1x1 nccl mesh:
+    ``forward`` (flash) and four quantized ``decode_step``s (qmatmul) under
+    ``plan.activate()`` launch each kernel on the gathered DTensor
+    operands as often as the unsharded run does, and equal it."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.plan import build_plan
+
+    plan = build_plan("yi-6b", None, debug=True, mode="megatron_sp",
+                      quantized=True)
+    model = plan.init_params(0)
+    tokens = torch.arange(2 * 64, device="cuda",
+                          dtype=torch.int32).view(2, 64) % plan.cfg.vocab
+
+    def run():
+        flash_ops.launches = ops.launches = 0
+        fwd = model.forward({"tokens": tokens})
+        n_flash = flash_ops.launches
+        state = plan.fresh_decode_state(2, 16)
+        steps = [model.decode_step(state, tokens[:, i], i)[0]
+                 for i in range(4)]
+        torch.cuda.synchronize()
+        return fwd, steps, n_flash, ops.launches
+
+    fwd, steps, n_flash, n_q = run()
+    L = plan.cfg.n_layers      # the forward runs the a16w8 MLP too
+    assert (n_flash, n_q) == (L, L + 4 * (L + 1))
+    plan.shard_model(model)
+    with plan.activate():
+        got, got_steps, g_flash, g_q = run()
+    assert isinstance(got, DTensor) and all(isinstance(s, DTensor)
+                                            for s in got_steps)
+    assert (g_flash, g_q) == (n_flash, n_q)
+    assert torch.equal(got.full_tensor(), fwd)
+    for a, b in zip(got_steps, steps):
+        assert torch.equal(a.full_tensor(), b)

@@ -321,3 +321,276 @@ def test_shard_params_needs_a_device_mesh():
     model = build_model(plan.cfg, device="cpu").init_params(0)
     with pytest.raises(TypeError, match="DeviceMesh"):
         plan.shard_params(model)
+
+
+# ---------------------------------------------------------------------------
+# running sharded: state specs, activation constraints, a 1x1 mesh
+# ---------------------------------------------------------------------------
+
+STATE_GEOMETRY = (2, 64)            # (batch, max_len) of the state specs
+PAGES = (12, 16)                    # (page_count, page_size)
+
+
+def _spec_view(specs):
+    return {k: (tuple(s.shape), tuple(s.logical),
+                str(np.dtype(s.dtype).name) if not isinstance(
+                    s.dtype, torch.dtype) else str(s.dtype)[6:])
+            for k, s in specs.items()}
+
+
+@pytest.mark.parametrize("size", ["full", "reduced"])
+@pytest.mark.parametrize("arch", PORTED_IDS)
+def test_state_specs_equal_reference(arch, size):
+    """``decode_state_specs``, ``paged_state_specs`` of it and
+    ``spec_state_specs`` of it equal the reference's: keys, shapes (the
+    hybrid's and the vision LM's doubly stacked leaves as the reference
+    stacks them), logical axes and dtypes; full sizes on the meta
+    device."""
+    from repro.models import base as jbase
+
+    from repro_torch.models import base as tbase
+
+    tcfg = get_config(arch) if size == "full" else reduced_config(arch)
+    jcfg = jax_get_config(arch) if size == "full" else jax_reduced_config(arch)
+    tm, jm = build_model(tcfg, device="meta"), jax_build_model(jcfg)
+    got, want = tm.decode_state_specs(*STATE_GEOMETRY), \
+        jm.decode_state_specs(*STATE_GEOMETRY)
+    assert _spec_view(got) == _spec_view(want)
+    assert _spec_view(tbase.paged_state_specs(got, *PAGES)) == \
+        _spec_view(jbase.paged_state_specs(want, *PAGES))
+    assert _spec_view(tbase.spec_state_specs(got, 1)) == \
+        _spec_view(jbase.spec_state_specs(want, 1))
+
+
+@pytest.mark.parametrize("arch", PORTED_IDS)
+def test_state_specs_lay_out_the_allocated_state(arch):
+    """Every leaf ``decode_state`` allocates, dense and paged (each half),
+    has a spec that ``port_layout`` maps onto its shape and dtype."""
+    from repro_torch.models.base import port_layout, state_specs
+
+    model = build_model(reduced_config(arch), device="meta")
+    draft = 1 if model.cfg.family in ("dense", "moe") else 0
+    for paged, only in ((None, None), (PAGES, "pool"), (PAGES, "dense")):
+        state = model.decode_state(*STATE_GEOMETRY, paged=paged, only=only,
+                                   draft_layers=draft)
+        specs = state_specs(model, *STATE_GEOMETRY, paged=paged, only=only,
+                            draft_layers=draft)
+        assert set(specs) == set(state), (paged, only)
+        for k, leaf in state.items():
+            spec = port_layout(specs[k], tuple(leaf.shape))
+            assert spec.dtype == leaf.dtype, (k, spec.dtype, leaf.dtype)
+
+
+def test_shard_act_is_the_identity_outside_a_context():
+    x = torch.randn(2, 3, 4)
+    assert tsh.current_ctx() is None
+    assert tsh.shard_act(x, "batch", "seq", "act_embed") is x
+    with tsh.sharding_ctx("mesh", "rules") as ctx:
+        assert tsh.current_ctx() == ctx == ("mesh", "rules")
+        with tsh.sharding_ctx("inner", "rules"):
+            assert tsh.current_ctx() == ("inner", "rules")
+        assert tsh.current_ctx() == ("mesh", "rules")
+    assert tsh.current_ctx() is None
+    assert tsh.serving_grad_mode().__class__ is torch.inference_mode
+
+
+# The reference's and the port's modules that call ``shard_act``.
+_JAX_SITES = ("repro.layers.attention", "repro.layers.embedding",
+              "repro.layers.mlp", "repro.layers.moe", "repro.layers.rwkv",
+              "repro.layers.ssm", "repro.models.blocks",
+              "repro.models.encdec", "repro.models.hybrid",
+              "repro.models.lm", "repro.models.rwkv_model",
+              "repro.models.vision_lm")
+_TORCH_SITES = tuple(m.replace("repro.", "repro_torch.", 1)
+                     for m in _JAX_SITES) + ("repro_torch.models.base",)
+
+
+def _record_sites(monkeypatch, modules):
+    import importlib
+
+    seen = set()
+
+    def record(x, *axes):
+        seen.add((axes, tuple(int(n) for n in x.shape)))
+        return x
+
+    for name in modules:
+        monkeypatch.setattr(importlib.import_module(name), "shard_act",
+                            record)
+    return seen
+
+
+def _site_inputs(cfg, B=2, S=8):
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal((B, 2 * S, cfg.d_model))
+    if cfg.family == "vlm":
+        batch["vision"] = rng.standard_normal(
+            (B, cfg.n_image_tokens, cfg.d_model))
+    return batch
+
+
+@pytest.mark.parametrize("arch", PORTED_IDS)
+def test_shard_act_sites_equal_reference(arch, monkeypatch):
+    """Every ``shard_act`` of the reference's ``forward`` and one
+    ``decode_step`` has its counterpart in the port with the same logical
+    axes on the same shape, and the port adds none there (its one extra
+    constraint, the loss's logits before the gold gather, is not on these
+    paths). The reference traces a scanned body once while the port loops
+    per layer, so the distinct (axes, shape) pairs are compared."""
+    import jax.numpy as jnp
+
+    from repro.dist.sharding import init_params
+
+    jcfg, tcfg = jax_reduced_config(arch), reduced_config(arch)
+    batch = _site_inputs(tcfg)
+    B = batch["tokens"].shape[0]
+    want = _record_sites(monkeypatch, _JAX_SITES)
+    jm = jax_build_model(jcfg)
+    params = init_params(jax.random.PRNGKey(0), jm.param_specs())
+    jm.forward(params, {k: jnp.asarray(v, jnp.bfloat16 if v.dtype.kind ==
+                                       "f" else v.dtype)
+                        for k, v in batch.items()})
+    state = init_params(jax.random.PRNGKey(0), jm.decode_state_specs(B, 16))
+    jm.decode_step(params, state, jnp.asarray(batch["tokens"][:, 0]),
+                   jnp.int32(3))
+    got = _record_sites(monkeypatch, _TORCH_SITES)
+    tm = build_model(tcfg, device="cpu").init_params(0)
+    tm.forward({k: torch.as_tensor(v, dtype=torch.bfloat16 if v.dtype.kind
+                                   == "f" else None)
+                for k, v in batch.items()})
+    tm.decode_step(tm.decode_state(B, 16),
+                   torch.as_tensor(batch["tokens"][:, 0]), 3)
+    assert got == want, (sorted(got - want), sorted(want - got))
+
+
+@pytest.mark.parametrize("mode", jsh.MODES)
+def test_sharded_model_on_a_one_by_one_gloo_mesh(mode):
+    """The card's set-up on the CPU: the reduced yi-6b's DTensor
+    parameters on the world-1 1x1 mesh run ``forward`` and four quantized
+    ``decode_step``s under ``plan.activate()`` bit for bit as the plain
+    model does (every shard is whole), the state placed by its specs;
+    ``unshard_model`` restores the plain parameters."""
+    from torch.distributed.tensor import DTensor
+
+    plan = build_plan("yi-6b", debug=True, device="cpu", mode=mode,
+                      quantized=True)
+    model = plan.init_params(0)
+    assert not plan.sharded
+    plain = {n: p for n, p in model.named_parameters()}
+    tokens = torch.arange(16, dtype=torch.int32).view(2, 8)
+    ref = model.forward({"tokens": tokens})
+    state = plan.fresh_decode_state(2, 16)
+    ref_dec = [model.decode_step(state, tokens[:, i], i)[0]
+               for i in range(4)]
+    plan.shard_model(model)
+    assert plan.sharded
+    assert all(isinstance(p, DTensor) for p in model.parameters())
+    with plan.activate():
+        got = model.forward({"tokens": tokens})
+        assert isinstance(got, DTensor)
+        assert torch.equal(got.full_tensor(), ref)
+        state = plan.fresh_decode_state(2, 16)
+        assert all(isinstance(v, DTensor) for v in state.values())
+        for i in range(4):
+            logits, _ = model.decode_step(state, tokens[:, i], i)
+            assert torch.equal(logits.full_tensor(), ref_dec[i]), i
+    plan.unshard_model(model)
+    assert not plan.sharded
+    for n, p in model.named_parameters():
+        assert type(p.data) is torch.Tensor and torch.equal(p, plain[n]), n
+
+
+def test_kernel_wrappers_refuse_a_mixed_call():
+    """A kernel wrapper given DTensors gathers them and runs once (the
+    plain version on the CPU), returning a replicated DTensor; a call that
+    mixes a DTensor and a plain tensor raises."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.qmatmul.ops import qlinear
+
+    mesh = make_debug_mesh(1, 1, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    x = torch.randint(-100, 100, (4, 64), generator=g, dtype=torch.int8)
+    w = torch.randint(-100, 100, (64, 32), generator=g, dtype=torch.int8)
+    xd = DTensor.from_local(x, mesh, [Shard(0), Replicate()])
+    wd = DTensor.from_local(w, mesh, [Replicate(), Shard(1)])
+    y = qlinear(xd, wd, shift=7)
+    assert isinstance(y, DTensor) and all(
+        p == Replicate() for p in y.placements)
+    assert torch.equal(y.to_local(), qlinear(x, w, shift=7))
+    with pytest.raises(TypeError, match="mixes DTensors and plain"):
+        qlinear(xd, w, shift=7)
+    q = torch.randn(2, 8, 16, generator=g)
+    qd = DTensor.from_local(q, mesh, [Shard(0), Replicate()])
+    o = flash_attention(qd, qd, qd)
+    assert torch.equal(o.to_local(), flash_attention(q, q, q))
+    with pytest.raises(TypeError, match="mixes DTensors and plain"):
+        flash_attention(qd, q, q)
+
+
+def test_local_product_keeps_rows_or_columns_and_gathers_the_rest():
+    """A product DTensor has no rule for runs on local operands: rows of
+    ``a`` or columns of ``b`` stay sharded, the contraction is whole."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = make_debug_mesh(1, 1, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    a, b = torch.randn(4, 6, generator=g), torch.randn(6, 8, generator=g)
+    cases = [([Shard(0), Shard(1)], [Shard(0), Shard(1)],
+              (Shard(0), Shard(1))),
+             ([Replicate(), Shard(1)], [Shard(0), Replicate()],
+              (Replicate(), Replicate()))]
+    for pa, pb, want in cases:
+        y = tsh.local_product(torch.mm, DTensor.from_local(a, mesh, pa),
+                              DTensor.from_local(b, mesh, pb))
+        assert tuple(y.placements) == want
+        assert torch.equal(y.full_tensor(), a @ b)
+    e = torch.randn(2, 4, 6, generator=g)
+    w = torch.randn(2, 6, 3, generator=g)
+    y = tsh.local_product(torch.bmm,
+                          DTensor.from_local(e, mesh, [Shard(0), Shard(2)]),
+                          DTensor.from_local(w, mesh, [Shard(0), Shard(1)]))
+    assert tuple(y.placements) == (Shard(0), Replicate())
+    assert torch.equal(y.full_tensor(), torch.bmm(e, w))
+
+
+def test_async_server_enters_the_sharded_context_on_its_worker():
+    """The async server's worker thread enters the plan's sharding context
+    itself (the context is thread-local): continuous paged streams of the
+    reduced yi-6b sharded on the 1x1 gloo mesh equal the plain model's."""
+    import asyncio
+
+    from repro_torch.serve import (
+        AsyncServeServer,
+        Bucket,
+        BucketPolicy,
+        DecodeRequest,
+    )
+
+    trace = [(f"a{i}", [3 + i, 7, 11], 5) for i in range(3)]
+
+    def serve(shard):
+        plan = build_plan("yi-6b", debug=True, device="cpu",
+                          mode="megatron_sp")
+        plan.init_params(0, shard=shard)
+        assert plan.sharded == shard
+        b = plan.make_batcher(policy=BucketPolicy([Bucket(64, 2)]),
+                              schedule="continuous", steps_per_dispatch=4,
+                              paged=(16, 16))
+
+        async def drive():
+            async with AsyncServeServer(b) as server:
+                got = await asyncio.gather(*[
+                    server.generate(DecodeRequest(r, p, max_new_tokens=n))
+                    for r, p, n in trace])
+                return {g.request_id: g.tokens for g in got}, server.stats()
+
+        return asyncio.run(drive())
+
+    plain, _ = serve(False)
+    got, stats = serve(True)
+    assert got == plain
+    assert stats["outcomes"] == {"done": len(trace)}

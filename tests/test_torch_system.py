@@ -135,7 +135,10 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 def test_import_loads_neither_jax_nor_reference():
     """Every module of the port imports without jax, without the reference
-    package and without CUDA or Triton (kernels build at first launch)."""
+    package and without CUDA or Triton (kernels build at first launch);
+    so does the multi-rank spawn helper of the sharded tests, whose ranks
+    must not load JAX, and ``repro_torch.dist`` exports the activation
+    context."""
     src = ROOT / "src"
     modules = sorted(
         ".".join(p.relative_to(src).with_suffix("").parts).removesuffix(
@@ -147,15 +150,19 @@ def test_import_loads_neither_jax_nor_reference():
             "repro_torch.launch.mesh"} <= set(modules)
     code = (
         "import importlib, sys\n"
-        f"for m in {modules!r}:\n"
+        f"for m in {modules!r} + ['_torch_dist_run']:\n"
         "    importlib.import_module(m)\n"
+        "import repro_torch.dist as d\n"
+        "assert {'sharding_ctx', 'current_ctx', 'shard_act',\n"
+        "        'serving_grad_mode'} <= set(d.__all__)\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'triton')]\n"
         "assert not bad, bad\n"
         "import torch\n"
         "assert not torch.cuda.is_initialized()\n"
     )
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT / "tests")]))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
