@@ -221,7 +221,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
     by a new trainer, on the stream: its losses are printed, and its
     parameters are ``torch.equal`` to an uninterrupted run's; each
     checkpoint's size and save time are printed, in a directory under
-    ``build/`` deleted after.
+    ``build/`` deleted after (the step-3 checkpoint is hard-linked into
+    a directory of its own for phase 20, deleted by it).
 18. adafactor at full width: mistral-large-123b cut to 2 of 88 layers (d
     12288, d_ff 28672, vocab 32768: 3.57 B parameters), batch 1 x 4096, 3
     steps: finite losses and grad norms, the factored state's bytes, the
@@ -236,6 +237,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
     of ``bridge.leaf_groups``. Then ``--data 2`` and ``--multi-pod`` (in
     parallel) must exit non-zero within ``MESH_CLI_TIMEOUT_S``, printing
     ``need 2 devices, have 1`` and ``need 512 devices, have 1``.
+20. Training sharded on the 1x1 nccl mesh: phase 17's restart config
+    under its mode (megatron), the parameters and the optimizer state
+    placed as DTensors (``plan.init_train_state(0, shard=True)``), a
+    ``Trainer`` on the plan's mesh resumes from phase 17's step-3
+    checkpoint (plain -> mesh) and runs steps 3-5 (0 launches of either
+    kernel); its final parameters, its losses and its step-6 checkpoint
+    (written from the mesh, read back as plain tensors: mesh -> plain)
+    must be ``torch.equal`` to phase 17's uninterrupted plain run (every
+    shard is whole on one device). One more sharded step is profiled
+    (the idle share beside phase 17's plain one), one step's gradients
+    go through the collective ``error_feedback_reduce`` over "data" (a
+    group of one), equal to the local form, and the train CLI ``--debug
+    --mode megatron --steps 2`` runs in its own process beside the
+    phase. Prints the step times beside the plain resume's, the peak
+    memory and the save time from the mesh.
 
 Roofline lines: the yi-6b prefill (phase 6), the yi-6b quantized paged
 micro-run (phase 9) and the qwen1.5-4b train step (phase 17) each run one
@@ -435,10 +451,15 @@ TRAIN_LOSS_DROP = 2.0
 # a failure injected at step 4
 RESTART_LAYERS, RESTART_STEPS, RESTART_CKPT_EVERY = 2, 6, 3
 RESTART_FAIL_AT = 4
+# phase 20: the train CLI on the 1x1 mesh, in a process of its own
+TRAIN_CLI_TIMEOUT_S = 120
 # phase 19: the plan smoke CLI at full width, in a process of its own
 PLAN_CLI_ARCH = "yi-6b"
 PLAN_CLI_TIMEOUT_S = 300
 PLAN_CLI_PATH = "yi-6b plan CLI warm check, two waves (phase 19)"
+# phase 20: phase 17's restart resumed sharded on the 1x1 mesh
+SHARDED_TRAIN_PATH = (f"{TRAIN_ARCH} ({RESTART_LAYERS} layers) sharded 1x1 "
+                      f"resume, steps 3-5 (phase 20)")
 # phase 7: the resident yi-6b run sharded on the 1x1 mesh
 SHARDED_MODE = "megatron_sp"
 SHARDED_TIMED_STEPS = 8
@@ -2121,7 +2142,10 @@ def run_restart(dev, smi):
     """Phase 17's restart: qwen at full width cut to 2 layers, 6 steps
     straight and again with a failure at step 4 resumed from the step-3
     checkpoint by a new trainer; the final parameters are compared with
-    ``torch.equal``."""
+    ``torch.equal``. Keeps for phase 20 the straight run's final
+    parameters (on the host), the crash's step-3 checkpoint (hard-linked
+    into a directory of its own under ``build/``), and the plain resume's
+    step times, peak memory and one profiled step."""
     from repro_torch.models import ShapeSpec
     from repro_torch.plan import build_plan
     from repro_torch.train import FailureInjector, Trainer, TrainerConfig
@@ -2160,13 +2184,14 @@ def run_restart(dev, smi):
     stream = train_stream(plan.cfg, TRAIN_BATCH, TRAIN_SEQ)
     (ROOT / "build").mkdir(exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="ckpt_", dir=ROOT / "build")
+    resume_dir = tempfile.mkdtemp(prefix="ckpt_phase20_", dir=ROOT / "build")
     try:
         print(f"checkpoint disk: {shutil.disk_usage(tmp).free / 1e9:.1f} "
               f"GB free")
         model, opt_state = fresh()
         straight, _, hist_a = trainer(os.path.join(tmp, "a"), 100).fit(
             model, opt_state, stream, resume=False)
-        want = {n: p.detach().clone()
+        want = {n: p.detach().cpu()
                 for n, p in straight.named_parameters()}
         del straight, model, opt_state
         shutil.rmtree(os.path.join(tmp, "a"))
@@ -2180,15 +2205,26 @@ def run_restart(dev, smi):
         else:
             raise AssertionError("the injected failure did not fire")
         del model, opt_state, crashed
+        # phase 20 resumes from this checkpoint on the mesh: its files
+        # hard-linked (the plain resume's retention deletes the original)
+        step3 = f"step_{RESTART_CKPT_EVERY:08d}"
+        os.makedirs(os.path.join(resume_dir, step3))
+        for f in os.listdir(os.path.join(tmp, "b", step3)):
+            os.link(os.path.join(tmp, "b", step3, f),
+                    os.path.join(resume_dir, step3, f))
         model, opt_state = fresh()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        resumed, _, hist_b = trainer(os.path.join(tmp, "b"),
-                                     RESTART_CKPT_EVERY).fit(
+        resumed, opt_state, hist_b = trainer(os.path.join(tmp, "b"),
+                                             RESTART_CKPT_EVERY).fit(
             model, opt_state, stream)
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
         if hist_b[0]["step"] != RESTART_CKPT_EVERY:
             raise AssertionError(f"resumed at step {hist_b[0]['step']}, "
                                  f"not {RESTART_CKPT_EVERY}")
-        equal = all(torch.equal(p, want[n])
+        equal = all(torch.equal(p.cpu(), want[n])
                     for n, p in resumed.named_parameters())
         print(f"restart {TRAIN_ARCH} ({RESTART_LAYERS} layers, vocab "
               f"{plan.cfg.vocab}): {RESTART_STEPS} steps with a failure at "
@@ -2200,9 +2236,207 @@ def run_restart(dev, smi):
               f"{[round(h['loss'], 4) for h in hist_b]}; [{smi}]")
         if not equal:
             raise AssertionError("restart is not bit-exact on the card")
+        from repro_torch.train.trainer import batch_to_device
+
+        batch = batch_to_device(next(stream(0)), resumed)
+        split = profile_split(lambda: plan.executable("train").fn(
+            resumed, opt_state, batch), calls=1)
+        del resumed, opt_state, model
+    except BaseException:
+        shutil.rmtree(resume_dir, ignore_errors=True)
+        raise
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return dict(equal=equal, saves=saves)
+    return dict(equal=equal, saves=saves, want=want, resume_dir=resume_dir,
+                losses=[h["loss"] for h in hist_b],
+                step_ms=[h["dt"] * 1e3 for h in hist_b], peak_gb=peak_gb,
+                split=split, mode=plan.mode)
+
+
+def run_sharded_training(dev, flash_ops, qmatmul_ops, restart, smi):
+    """Phase 20: phase 17's restart config (qwen at full width and vocab,
+    2 layers, [2, 4096], adamw) trained sharded on the card's 1x1 nccl
+    mesh under the config's mode. A new trainer on the mesh resumes from
+    the step-3 checkpoint of phase 17's crash at step 4 (plain -> mesh:
+    the parameters take their shards, the state comes back at its
+    placements) and runs steps 3-5; its step-6 checkpoint is written from
+    the mesh (gathered, rank 0 writes). The final parameters, and the
+    step-6 checkpoint read back as plain tensors (mesh -> plain), must be
+    ``torch.equal`` to phase 17's uninterrupted plain run. Then one step's
+    gradients go through the collective ``error_feedback_reduce`` over the
+    data axis (a group of one), equal to the local form, and the train
+    CLI ``--debug --mode megatron --steps 2`` runs in its own process."""
+    from repro_torch.bridge import _flatten, leaf_groups, params_template
+    from repro_torch.dist.sharding import is_dtensor, local_value
+    from repro_torch.models import ShapeSpec
+    from repro_torch.optim import error_feedback_reduce
+    from repro_torch.optim.optimizers import local, stacked
+    from repro_torch.plan import build_plan
+    from repro_torch.train import CheckpointManager, Trainer, TrainerConfig
+    from repro_torch.train.trainer import (batch_to_device, model_loss,
+                                           on_mesh, value_and_grad)
+
+    t_phase = time.perf_counter()
+    ckpt_dir = restart["resume_dir"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cli_dir = tempfile.mkdtemp(prefix="ckpt_cli_", dir=ROOT / "build")
+    cli_cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               "yi-6b", "--debug", "--mode", "megatron", "--steps", "2",
+               "--device", str(dev), "--ckpt-dir", cli_dir]
+    cli = subprocess.Popen(cli_cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                           stderr=subprocess.PIPE, text=True)
+    try:
+        plan = build_plan(TRAIN_ARCH, ShapeSpec(
+            "train_4k_b2", TRAIN_SEQ, TRAIN_BATCH, "train"), device=dev,
+            config_overrides={"n_layers": RESTART_LAYERS})
+        if plan.mode != restart["mode"]:
+            raise AssertionError(f"mode {plan.mode} != phase 17's "
+                                 f"{restart['mode']}")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        model, opt_state = plan.init_train_state(seed=0, shard=True)
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t
+        leaves = list(model.parameters()) + [
+            v for d in (opt_state["m"], opt_state["v"]) for v in d.values()]
+        leaves.append(opt_state["step"])
+        if not all(is_dtensor(v) for v in leaves):
+            raise AssertionError("a parameter or state leaf is not placed")
+        trainer = Trainer(model_loss, plan.optimizer, TrainerConfig(
+            steps=RESTART_STEPS, ckpt_every=RESTART_CKPT_EVERY,
+            ckpt_dir=ckpt_dir, keep=2, log_every=1), mesh=plan.mesh,
+            rules=plan.rules)
+        timed = {}
+
+        def timer(name, fn):
+            def call(*a, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                timed.setdefault(name, []).append(time.perf_counter() - t0)
+                return out
+            return call
+
+        trainer.ckpt.save = timer("save", trainer.ckpt.save)
+        trainer.ckpt.restore = timer("restore", trainer.ckpt.restore)
+        stream = train_stream(plan.cfg, TRAIN_BATCH, TRAIN_SEQ)
+        flash_ops.launches = 0
+        qmatmul_ops.launches = 0
+        model, opt_state, hist = trainer.fit(model, opt_state, stream)
+        torch.cuda.synchronize()
+        launches = dict(flash=flash_ops.launches,
+                        qmatmul=qmatmul_ops.launches)
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        if launches["flash"] or launches["qmatmul"]:
+            raise AssertionError(f"a kernel ran on the sharded training "
+                                 f"path: {launches}")
+        if hist[0]["step"] != RESTART_CKPT_EVERY:
+            raise AssertionError(f"resumed at step {hist[0]['step']}, not "
+                                 f"{RESTART_CKPT_EVERY}")
+        want = restart["want"]
+        equal = all(torch.equal(local_value(p.detach()).cpu(), want[n])
+                    for n, p in model.named_parameters())
+        # mesh -> plain: the sharded run's step-6 checkpoint as plain
+        # tensors (its parameters only), held to the plain run
+        t = time.perf_counter()
+        back = CheckpointManager(ckpt_dir).restore(
+            RESTART_STEPS, {"params": params_template(model)}, device=dev)
+        back_s = time.perf_counter() - t
+        groups = leaf_groups(model)
+        flat = _flatten(back["params"])
+        back_equal = all(
+            torch.equal(flat[g.name].reshape(-1, *want[m].shape)[i].cpu(),
+                        want[m])
+            for g in groups for i, m in enumerate(g.members))
+        del back, flat
+        losses = [h["loss"] for h in hist]
+        step_ms = [h["dt"] * 1e3 for h in hist]
+        print(f"sharded restart {TRAIN_ARCH} ({RESTART_LAYERS} layers, "
+              f"{plan.mode}, mesh 1x1 {torch.distributed.get_backend()} "
+              f"world {torch.distributed.get_world_size()}): {len(leaves)} "
+              f"parameter and state leaves all DTensors (placed in "
+              f"{place_s:.1f} s); resumed from phase 17's plain step-3 "
+              f"checkpoint (plain -> mesh, restore "
+              f"{timed['restore'][0]:.1f} s) at step {hist[0]['step']}, "
+              f"steps 3-5: final parameters torch.equal to phase 17's "
+              f"uninterrupted plain run: {equal}; the step-6 checkpoint "
+              f"written from the mesh read back as plain tensors (mesh -> "
+              f"plain, {back_s:.1f} s): torch.equal: {back_equal}; losses "
+              f"{[round(x, 4) for x in losses]} vs phase 17's resume "
+              f"{[round(x, 4) for x in restart['losses']]}; [{smi}]")
+        if not equal or not back_equal or losses != restart["losses"]:
+            raise AssertionError("the sharded restart is not bit-exact to "
+                                 "the plain run on the 1x1 mesh")
+        # one more step, profiled, on the same batch as phase 17's
+        batch = batch_to_device(next(stream(0)), model)
+        split = profile_split(lambda: plan.executable("train").fn(
+            model, opt_state, batch), calls=1)
+        busy, busy_plain = device_busy_ms(split), device_busy_ms(
+            restart["split"])
+        ratio = statistics.median(step_ms[1:]) / statistics.median(
+            restart["step_ms"][1:])
+        saves = timed["save"]
+        print(f"sharded restart step ms {[round(x, 4) for x in step_ms]} vs "
+              f"plain resume {[round(x, 4) for x in restart['step_ms']]} "
+              f"(host clock, loss read back; the first resumed step warms "
+              f"up), median of the later steps x{ratio:.2f}; device per "
+              f"step {busy:.4f} ms sharded vs {busy_plain:.4f} ms plain, "
+              f"idle share {1 - busy / split['profiled_wall_ms']:.3f} vs "
+              f"{1 - busy_plain / restart['split']['profiled_wall_ms']:.3f} "
+              f"(one profiled step each); peak +{peak_gb:.3f} GB over the "
+              f"placement and the sharded resume vs +"
+              f"{restart['peak_gb']:.3f} GB over the plain resume; "
+              f"checkpoint save from the mesh {saves[-1]:.1f} s (gathered, "
+              f"written by rank 0) vs {restart['saves'][-1][2]:.1f} s plain "
+              f"({restart['saves'][-1][1] / 1e9:.2f} GB); flash launches == "
+              f"{launches['flash']}, qmatmul launches == "
+              f"{launches['qmatmul']}; [{smi}]")
+        # one step's gradients through the collective reduce (a group of
+        # one) and through the local form
+        with on_mesh(plan.mesh, plan.rules, model):
+            _, grads = value_and_grad(model_loss, model, batch)
+            t = time.perf_counter()
+            same = 0
+            for g in groups:
+                block = local(stacked(grads, g))
+                res = torch.zeros_like(block)
+                a = error_feedback_reduce(block, res, axis_name="data")
+                b = error_feedback_reduce(block, res)
+                same += torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            torch.cuda.synchronize()
+            reduce_s = time.perf_counter() - t
+        del grads
+        print(f"collective error_feedback_reduce over 'data' "
+              f"({torch.distributed.get_backend()}, a group of one): one "
+              f"step's gradients, {same} of {len(groups)} leaves' reduced "
+              f"gradient and residual torch.equal to the local form "
+              f"({reduce_s * 1e3:.1f} ms, host clock); [{smi}]")
+        if same != len(groups):
+            raise AssertionError("the collective reduce differs from the "
+                                 "local form over a group of one")
+        out, err = cli.communicate(timeout=TRAIN_CLI_TIMEOUT_S)
+        cli_s = time.perf_counter() - t_phase
+        last = out.strip().splitlines()[-1] if out.strip() else ""
+        if cli.returncode != 0 or "(sharded) mode=megatron" not in out \
+                or not last.startswith("done: loss"):
+            raise AssertionError(f"train CLI exited {cli.returncode}: "
+                                 f"{out[-2000:]} {err[-3000:]}")
+        print(f"train CLI {' '.join(cli_cmd[2:-2])}: exit 0 within "
+              f"{cli_s:.1f} s (its own process, beside the phase): "
+              f"{out.strip().splitlines()[0]!r} ... {last!r}")
+        del model, opt_state, trainer, plan
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+            cli.wait()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        shutil.rmtree(cli_dir, ignore_errors=True)
+    took = time.perf_counter() - t_phase
+    print(f"phase 20 took {took:.1f} s")
+    return dict(launches=launches, equal=equal, back_equal=back_equal,
+                step_ms=step_ms, peak_gb=peak_gb, split=split,
+                save_s=saves[-1], seconds=took)
 
 
 def run_adafactor(dev, flash_ops, qmatmul_ops, smi):
@@ -2762,11 +2996,17 @@ def main() -> int:
     free_card()
     plan_cli = run_plan_cli(smi)
     print(f"phase 19 done at {time.perf_counter() - t_start:.1f} s")
+    # phase 20: training sharded on the 1x1 mesh, resumed from phase 17
+    free_card()
+    sharded_train = run_sharded_training(dev, flash_ops, ops,
+                                         trained["restart"], smi)
+    print(f"phase 20 done at {time.perf_counter() - t_start:.1f} s")
     train_paths = {
         f"{TRAIN_ARCH} adamw train, {TRAIN_STEPS} steps (phase 17)":
             trained["launches"],
         f"{ADAFACTOR_ARCH} ({ADAFACTOR_LAYERS} layers) adafactor train, "
-        f"{ADAFACTOR_STEPS} steps (phase 18)": ada["launches"]}
+        f"{ADAFACTOR_STEPS} steps (phase 18)": ada["launches"],
+        SHARDED_TRAIN_PATH: sharded_train["launches"]}
 
     per = {(r["M"], r["K"], r["N"]): r for r in rows_t + lm_rows}
     # one aie predict of every request configuration, and one quantized

@@ -321,6 +321,8 @@ def params_to_arrays(model: nn.Module) -> Dict[str, Any]:
     :func:`model_from_arrays` up to dtype. numpy has no bfloat16 of its
     own, so a bf16 leaf comes out as fp32 (exactly; as the checkpoint
     stores it)."""
+    from repro_torch.dist.sharding import local_value
+
     params = dict(model.named_parameters())
     flat = {}
     for grp in leaf_groups(model):
@@ -330,7 +332,8 @@ def params_to_arrays(model: nn.Module) -> Dict[str, Any]:
         arr = np.empty(grp.stack + tuple(first.shape), dtype)
         rows = arr.reshape(-1, *first.shape)
         for i, name in enumerate(grp.members):
-            t = params[name].detach()
+            # a DTensor is gathered whole: a collective every rank joins
+            t = local_value(params[name].detach())
             rows[i] = (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
         flat[grp.name] = arr
     return _nest(flat)
@@ -352,8 +355,11 @@ def params_template(model: nn.Module) -> Dict[str, Any]:
 def load_arrays(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
     """Copy the reference-layout tree ``tree`` (numpy arrays or tensors,
     stacked as :func:`params_to_arrays` gives them) into ``model``'s
-    parameters in place, each cast to its parameter's dtype. Raises on a
-    missing, extra or misshapen leaf."""
+    parameters in place, each cast to its parameter's dtype. A DTensor
+    parameter takes its own shard of the whole value (each rank holds the
+    tree; no data moves). Raises on a missing, extra or misshapen leaf."""
+    from repro_torch.dist.sharding import is_dtensor, place
+
     params = dict(model.named_parameters())
     groups = leaf_groups(model)
     flat = _flatten(tree)
@@ -373,7 +379,13 @@ def load_arrays(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
             arr, torch.device("cpu"))
         rows = src.reshape(-1, *first.shape)
         for i, name in enumerate(grp.members):
-            params[name].copy_(rows[i])
+            p = params[name]
+            if is_dtensor(p):
+                p.to_local().copy_(place(
+                    rows[i].to(device=p.device, dtype=p.dtype),
+                    p.device_mesh, p.placements).to_local())
+            else:
+                p.copy_(rows[i])
     if hasattr(model, "reset_quantized"):
         model.reset_quantized()
     return model

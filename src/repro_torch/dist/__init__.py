@@ -20,6 +20,7 @@ from repro_torch.dist.sharding import (
     rules_for_mode,
     serving_grad_mode,
     shard_act,
+    sharded,
     sharding_ctx,
     spec_to_pspec,
     specs_to_placements,
@@ -38,6 +39,7 @@ __all__ = [
     "rules_for_mode",
     "serving_grad_mode",
     "shard_act",
+    "sharded",
     "sharding_ctx",
     "spec_to_pspec",
     "specs_to_placements",

@@ -517,6 +517,47 @@ def local_value(x: torch.Tensor) -> torch.Tensor:
     return x.full_tensor() if is_dtensor(x) else x
 
 
+def leaf_placements(member: Sequence[Any], nstack: int) -> List[Any]:
+    """A stacked leaf's placements from one member's: each ``Shard(d)``
+    moves past the ``nstack`` stacked dims, which replicate (a one-stage
+    plan never shards its ``layers`` dims)."""
+    from torch.distributed.tensor import Shard
+
+    return [Shard(p.dim + nstack) if p.is_shard() else p for p in member]
+
+
+def place(x: torch.Tensor, mesh, placements: Sequence[Any]):
+    """``x``, the whole value and the same on every rank, as a DTensor at
+    ``placements``: each rank keeps its own shard of its own copy, so no
+    data moves between ranks (``distribute_tensor`` with no source
+    rank)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(x, mesh, list(placements), src_data_rank=None)
+
+
+def at_placements(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``x`` redistributed to ``like``'s placements when both are DTensors
+    and they differ (a ``Partial`` gradient is reduced onto its
+    parameter's layout); otherwise ``x`` itself."""
+    if not is_dtensor(x) or not is_dtensor(like) \
+            or tuple(x.placements) == tuple(like.placements):
+        return x
+    return x.redistribute(like.device_mesh, like.placements)
+
+
+def mesh_all_reduce(t: torch.Tensor, mesh) -> torch.Tensor:
+    """Sum the plain tensor ``t`` in place over every rank of ``mesh``,
+    one mesh dim after another (a dim of one device is skipped). Returns
+    ``t``."""
+    import torch.distributed as dist
+
+    for i in range(mesh.ndim):
+        if mesh.size(i) > 1:
+            dist.all_reduce(t, group=mesh.get_group(i))
+    return t
+
+
 def serving_grad_mode():
     """The autograd mode of the serve path: ``torch.inference_mode()``
     outside a sharding context (the one-device path), ``torch.no_grad()``
@@ -567,3 +608,13 @@ def implicit_replication():
             if _implicit_depth == 0:
                 _implicit_cm.__exit__(None, None, None)
                 _implicit_cm = None
+
+
+@contextmanager
+def sharded(mesh, rules: ShardingRules):
+    """Run sharded on ``mesh``: :func:`sharding_ctx` for this thread and
+    :func:`implicit_replication`, so the plain tensors the layers make
+    meet DTensors as replicated ones. The replication switch is
+    process-wide, so a backward must run inside too."""
+    with sharding_ctx(mesh, rules), implicit_replication():
+        yield

@@ -66,12 +66,15 @@ def train_inputs(cfg: ArchConfig, shape: ShapeSpec
     return want
 
 
-def make_train_step(cfg: ArchConfig, shape: ShapeSpec, optimizer) -> Step:
+def make_train_step(cfg: ArchConfig, shape: ShapeSpec, optimizer,
+                    mesh=None, rules=None) -> Step:
     """``train(model, opt_state, batch) -> {"loss", "grad_norm"}``: one
     optimizer step on ``batch`` (``train_inputs`` at this shape), the
     parameters and ``opt_state`` updated in place (the reference returned
     new ones), with ``cfg.microbatches`` accumulated microbatches
-    (``train.trainer.train_step``)."""
+    (``train.trainer.train_step``). With ``mesh`` (and ``rules``) the step
+    runs sharded on it: the model's parameters and the state are DTensors
+    there, and the batch is laid out over the data axes."""
     from repro_torch.train.trainer import train_step as step
 
     want = train_inputs(cfg, shape)
@@ -83,7 +86,8 @@ def make_train_step(cfg: ArchConfig, shape: ShapeSpec, optimizer) -> Step:
                              f"was built for {sorted(want)}")
         for name, s in want.items():
             _expect(name, batch[name], s)
-        return step(model, optimizer, opt_state, batch, microbatches=nmb)
+        return step(model, optimizer, opt_state, batch, microbatches=nmb,
+                    mesh=mesh, rules=rules)
 
     return train_step
 

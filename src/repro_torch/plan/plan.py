@@ -30,8 +30,14 @@ whole stack, as the reference's GSPMD program does):
         logits = model.forward({"tokens": tokens})
         state = plan.fresh_decode_state(8, 64)     # placed by its specs
 
+and trains sharded, the optimizer state placed by its ``state_specs``:
+
+    model, opt_state = plan.init_train_state(seed=0)   # placed when sharded
+    Trainer(model_loss, plan.optimizer, cfg, mesh=plan.mesh,
+            rules=plan.rules).fit(model, opt_state, stream)
+
 A staged plan (``pipeline_stages`` > 1 with ``layers -> data``) cannot
-be placed yet (ROADMAP Queue 1 item 2, part 2b).
+be placed yet (ROADMAP Queue 1 item 2, part 2c).
 """
 
 from __future__ import annotations
@@ -44,11 +50,11 @@ import torch
 
 from repro_torch.core.emit import DeviceLike
 from repro_torch.dist.sharding import (
+    ParamSpec,
     PartitionSpec,
-    implicit_replication,
     local_value,
     pspec_to_placements,
-    sharding_ctx,
+    sharded,
     spec_to_pspec,
 )
 from repro_torch.launch.steps import (
@@ -146,7 +152,7 @@ class ExecutionPlan:
         DTensors as replicated ones (the counterpart of the reference's
         ``with mesh, sharding_ctx(...)``). The replication switch is
         process-wide, so a backward must run inside the context too."""
-        with sharding_ctx(self.mesh, self.rules), implicit_replication():
+        with sharded(self.mesh, self.rules):
             yield self
 
     # -- parameters / placement ----------------------------------------------
@@ -256,16 +262,103 @@ class ExecutionPlan:
         model = build_model(self.cfg, device=self.device).init_params(seed)
         return self._install(model, shard)
 
-    def init_train_state(self, seed: int = 0):
+    def init_train_state(self, seed: int = 0, shard: Optional[bool] = None):
         """``(model, optimizer state)`` ready for the train step: random
-        parameters (:meth:`init_params`) and the optimizer's state over the
-        reference's leaves (``bridge.leaf_groups``)."""
+        parameters (:meth:`init_params`, placed with ``shard``) and the
+        optimizer's state over the reference's leaves
+        (``bridge.leaf_groups``); on a sharded model the state is placed
+        on the mesh by the optimizer's ``state_specs``
+        (:meth:`placed_opt_state`), as the reference's ``init`` runs under
+        its mesh."""
         from repro_torch.bridge import leaf_groups
 
-        model = self.init_params(seed)
+        model = self.init_params(seed, shard=shard)
+        if self.sharded:
+            return model, self.placed_opt_state(model)
         opt_state = self.optimizer.init(dict(model.named_parameters()),
                                         leaf_groups(model))
         return model, opt_state
+
+    def opt_state_specs(self, model=None) -> Dict[str, Any]:
+        """The optimizer's ``state_specs`` over the model's leaves, keyed
+        as its state is (by leaf name, ``blocks.attn.wq.w``)."""
+        from repro_torch.bridge import leaf_groups
+        from repro_torch.models.base import leaf_key
+
+        model = self.model if model is None else model
+        specs = model.param_specs()
+        return self.optimizer.state_specs(
+            {g.name: specs[leaf_key(g.name)] for g in leaf_groups(model)})
+
+    def spec_placements(self, specs):
+        """The DTensor placements on :attr:`mesh` of every ``ParamSpec`` of
+        a (nested) dict of them, under the plan's rules."""
+        mesh = self.mesh
+        if isinstance(specs, ParamSpec):
+            return pspec_to_placements(spec_to_pspec(specs, mesh,
+                                                     self.rules), mesh)
+        return {k: self.spec_placements(v) for k, v in specs.items()}
+
+    def placed_opt_state(self, model=None) -> Dict[str, Any]:
+        """The optimizer's initial state for a sharded model, each leaf a
+        DTensor at the placements of its spec (:meth:`opt_state_specs`).
+        Both optimizers start every leaf at zero, so each rank allocates
+        only its shard; the structure is checked against the optimizer's
+        own ``init`` (run on the meta device)."""
+        from torch.distributed.tensor import zeros as dtensor_zeros
+
+        from repro_torch.bridge import leaf_groups
+
+        model = self.model if model is None else model
+        specs = self.opt_state_specs(model)
+        meta = self.optimizer.init(
+            {n: torch.empty(p.shape, dtype=p.dtype, device="meta")
+             for n, p in model.named_parameters()}, leaf_groups(model))
+        mesh = self.mesh
+
+        def build(spec, like, path):
+            if isinstance(spec, ParamSpec):
+                if (tuple(like.shape), like.dtype) != (spec.shape,
+                                                       spec.dtype) \
+                        or spec.init != "zeros":
+                    raise ValueError(f"{path}: state {tuple(like.shape)} "
+                                     f"{like.dtype} != spec {spec}")
+                return dtensor_zeros(
+                    spec.shape, dtype=spec.dtype, device_mesh=mesh,
+                    placements=self.spec_placements(spec))
+            if set(spec) != set(like):
+                raise KeyError(f"{path}: state keys {sorted(like)} != "
+                               f"specs {sorted(spec)}")
+            return {k: build(spec[k], like[k], f"{path}/{k}") for k in spec}
+
+        return build(specs, meta, "opt")
+
+    def train_state_shardings(self, model=None, compress: bool = False
+                              ) -> Dict[str, Any]:
+        """``{"params", "opt", "res"}``: a ``(mesh, placements)`` for every
+        leaf of the trainer's checkpoint (the stacked parameter tree, the
+        optimizer state, the error-feedback residuals: each leaf's
+        placements with ``compress``, else replicated scalars) on this
+        plan's mesh, the ``shardings`` of ``Trainer.restore_elastic``."""
+        from repro_torch.bridge import _nest, leaf_groups
+        from repro_torch.models.base import leaf_key
+
+        model = self.model if model is None else model
+        mesh = self.mesh
+        specs = model.param_specs()
+        groups = leaf_groups(model)
+        leaf = {g.name: (mesh, self.spec_placements(specs[leaf_key(g.name)]))
+                for g in groups}
+        opt = self.spec_placements(self.opt_state_specs(model))
+
+        def pair(tree):
+            return {k: pair(v) if isinstance(v, dict) else (mesh, v)
+                    for k, v in tree.items()}
+
+        scalar = (mesh, pspec_to_placements(PartitionSpec(), mesh))
+        return {"params": _nest(leaf), "opt": pair(opt),
+                "res": dict(leaf) if compress
+                else {g.name: scalar for g in groups}}
 
     def load_params(self, params, shard: Optional[bool] = None):
         """Install a ported model (``DecoderLM``, ``HybridModel``) or the
@@ -387,7 +480,9 @@ class ExecutionPlan:
 
     def executable(self, kind: Optional[str] = None) -> CachedExecutable:
         """The step for this plan's ShapeSpec ("train", "prefill" or
-        "decode"), built once through the ExecutableCache and counted."""
+        "decode"), built once through the ExecutableCache and counted. The
+        train step runs on the plan's mesh when the model was placed
+        (:meth:`shard_model`) before the step was built."""
         shape = self.shape
         if shape is None:
             raise ValueError(
@@ -397,8 +492,9 @@ class ExecutionPlan:
         builders = {
             "prefill": lambda: make_prefill_step(self.cfg, shape),
             "decode": lambda: make_serve_step(self.cfg, shape),
-            "train": lambda: make_train_step(self.cfg, shape,
-                                             self.optimizer),
+            "train": lambda: make_train_step(
+                self.cfg, shape, self.optimizer,
+                mesh=self.mesh if self.sharded else None, rules=self.rules),
         }
         if kind not in builders:
             raise ValueError(f"unknown executable kind {kind!r}")

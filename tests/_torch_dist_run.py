@@ -7,6 +7,7 @@ and ``tests/test_torch_dist_serve.py`` do):
     python tests/_torch_dist_run.py model INIT_FILE OUT_DIR WEIGHTS_DIR
     python tests/_torch_dist_run.py family INIT_FILE OUT_DIR
     python tests/_torch_dist_run.py serve INIT_FILE OUT_DIR
+    python tests/_torch_dist_run.py train INIT_FILE OUT_DIR WEIGHTS G_FILE
 
 Each spawns 8 ranks (rendezvous through ``file://INIT_FILE``, one thread
 each) that build the plan's 2x4 mesh, install the same weights, compute
@@ -31,6 +32,15 @@ reference's weights from ``WEIGHTS_DIR/<name>.npz`` (fp32, flat keys, as
   megatron_sp through ``plan.make_batcher()``: two fifo waves, then one
   continuous paged wave, with the streams and the plan cache's counters
   (``tests/test_distributed.py::test_serve_batcher_on_sharded_mesh``).
+* ``train``: the reduced yi-6b (as ``model``) in fp32 on the reference's
+  weights (``WEIGHTS``), trained by the port's ``Trainer`` unsharded on
+  every rank and sharded on the mesh (``TRAIN_RUNS``: adamw in each mode,
+  adafactor and int8 compression under megatron), with the losses and
+  the final parameters; a sharded run crashed at step 2 of 4 and resumed
+  on the mesh beside the straight run; ``restore_elastic`` of its
+  checkpoint onto a 4x2 mesh; and the collective
+  ``error_feedback_reduce`` of each rank's data block of ``G_FILE``'s
+  ``g`` over "data" (``reduce_<rank>.npz``).
 """
 
 import json
@@ -110,14 +120,14 @@ def _setup(rank, init_file):
                             rank=rank, world_size=WORLD)
 
 
-def _plan(arch, mode, overrides=None):
+def _plan(arch, mode, overrides=None, mesh=MESH):
     from repro_torch.configs import reduced_config
     from repro_torch.plan import MeshSpec, build_plan
 
     cfg = reduced_config(arch)
     if overrides:
         cfg = cfg.with_(**overrides)
-    return build_plan(cfg, mode=mode, mesh_spec=MeshSpec.debug(*MESH),
+    return build_plan(cfg, mode=mode, mesh_spec=MeshSpec.debug(*mesh),
                       device="cpu")
 
 
@@ -228,7 +238,7 @@ def model_rank(rank, init_file, out_dir, weights_dir):
 def staged_refusal():
     """A two-stage plan (``layers -> data`` on the 2x4 mesh) refuses to
     place its model: which member of a staged leaf goes to which row band
-    is part 2b. Returns the error and whether every parameter stayed
+    is part 2c. Returns the error and whether every parameter stayed
     plain."""
     from repro_torch.configs import reduced_config
     from repro_torch.plan import MeshSpec, build_plan
@@ -443,6 +453,189 @@ def serve_rank(rank, init_file, out_dir):
         _write(out_dir, "serve", out)
 
 
+TRAIN_BATCH = (8, 16)                  # (batch, seq) of the token stream
+TRAIN_RUNS = {                         # name: (mode, optimizer, steps, compress)
+    "adamw-cascade": ("cascade", "adamw", 3, False),
+    "adamw-megatron": ("megatron", "adamw", 3, False),
+    "adamw-megatron_sp": ("megatron_sp", "adamw", 3, False),
+    "adafactor-megatron": ("megatron", "adafactor", 2, False),
+    "compress-megatron": ("megatron", "adamw", 2, True),
+}
+RESTART = dict(steps=4, ckpt_every=2, fail_at=2)
+ELASTIC_MESH = (4, 2)
+
+
+def _train_stream(vocab):
+    from repro_torch.data import make_train_iterator
+
+    return lambda start: make_train_iterator(vocab, TRAIN_BATCH[1],
+                                             TRAIN_BATCH[0], seed=7,
+                                             start_step=start)
+
+
+def _fp32_model(plan, tree):
+    import torch
+
+    from repro_torch.bridge import load_arrays
+    from repro_torch.models.base import build_model
+
+    return load_arrays(build_model(plan.cfg, device="cpu",
+                                   dtype=torch.float32), tree)
+
+
+def _fit(plan, tree, ckpt_dir, steps, compress, sharded, ckpt_every=100,
+         fail_at=None, resume=False):
+    """One training run of ``plan``'s optimizer from ``tree``: the model
+    (plain, or sharded on the plan's mesh) and the losses."""
+    from repro_torch.bridge import leaf_groups
+    from repro_torch.train import FailureInjector, Trainer, TrainerConfig
+    from repro_torch.train.trainer import model_loss
+
+    model = _fp32_model(plan, tree)
+    if sharded:
+        plan.load_params(model, shard=True)
+        opt_state = plan.placed_opt_state(model)
+    else:
+        opt_state = plan.optimizer.init(dict(model.named_parameters()),
+                                        leaf_groups(model))
+    trainer = Trainer(model_loss, plan.optimizer, TrainerConfig(
+        steps=steps, ckpt_every=ckpt_every, ckpt_dir=ckpt_dir, log_every=100,
+        compress_grads=compress),
+        mesh=plan.mesh if sharded else None, rules=plan.rules)
+    if fail_at is not None:
+        trainer.injector = FailureInjector(fail_at_steps=(fail_at,))
+    _, state, hist = trainer.fit(model, opt_state,
+                                 _train_stream(plan.cfg.vocab), resume=resume)
+    return model, state, [h["loss"] for h in hist], trainer
+
+
+def _whole(model):
+    from repro_torch.dist.sharding import local_value
+
+    return {n: local_value(p.detach()) for n, p in model.named_parameters()}
+
+
+def train_rank(rank, init_file, out_dir, weights_file, g_file):
+    import torch
+
+    from repro_torch.bridge import _nest, leaf_groups, params_template
+    from repro_torch.dist.sharding import is_dtensor, sharding_ctx
+    from repro_torch.models.base import build_model
+    from repro_torch.optim import error_feedback_reduce
+    from repro_torch.train.fault import InjectedFailure
+
+    _setup(rank, init_file)
+    with np.load(weights_file) as z:
+        tree = _nest({k: z[k] for k in z.files})
+    out = {}
+    t0 = time.perf_counter()
+    for name, (mode, opt, steps, compress) in TRAIN_RUNS.items():
+        plan = _plan(YI, mode, dict(YI_MODEL, optimizer=opt))
+        plain, _, plain_losses, _ = _fit(
+            plan, tree, os.path.join(out_dir, f"plain-{rank}-{name}"), steps,
+            compress, sharded=False)
+        model, state, losses, _ = _fit(
+            plan, tree, os.path.join(out_dir, f"mesh-{name}"), steps,
+            compress, sharded=True)
+        want, got = _whole(plain), _whole(model)
+        out[name] = {
+            "losses": losses, "plain_losses": plain_losses,
+            "param_err": max(float((got[n] - want[n]).abs().max())
+                             for n in want),
+            "dtensor_params": sum(is_dtensor(p) for p in model.parameters()),
+            "dtensor_state": all(is_dtensor(v) for v in _leaves(state)),
+            "sharded_state": sum(
+                any(p.is_shard() for p in v.placements)
+                for v in _leaves(state)),
+        }
+    out["seconds_runs"] = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    # crash at step 2 of 4, resumed on the mesh by a new trainer
+    plan = _plan(YI, "megatron", YI_MODEL)
+    steps, every, fail_at = (RESTART["steps"], RESTART["ckpt_every"],
+                             RESTART["fail_at"])
+    straight, *_ = _fit(plan, tree, os.path.join(out_dir, "straight"),
+                        steps, False, True, ckpt_every=every)
+    crash_dir = os.path.join(out_dir, "crash")
+    try:
+        _fit(plan, tree, crash_dir, steps, False, True, ckpt_every=every,
+             fail_at=fail_at)
+        fired = False
+    except InjectedFailure:
+        fired = True
+    resumed, _, resumed_losses, trainer = _fit(
+        plan, tree, crash_dir, steps, False, True, ckpt_every=every,
+        resume=True)
+    a, b = _whole(straight), _whole(resumed)
+    out["restart"] = {"fired": fired, "resumed_steps": len(resumed_losses),
+                      "equal": all(torch.equal(a[n], b[n]) for n in a)}
+
+    out["seconds_restart"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    # the checkpoint of step 4 onto a 4x2 mesh
+    plan42 = _plan(YI, "megatron", YI_MODEL, mesh=ELASTIC_MESH)
+    meta = build_model(plan42.cfg, device="meta", dtype=torch.float32)
+    groups = leaf_groups(meta)
+    template = {
+        "params": params_template(meta),
+        "opt": plan42.optimizer.init(dict(meta.named_parameters()), groups),
+        "res": {g.name: torch.zeros((), device="meta") for g in groups}}
+    shardings = plan42.train_state_shardings(meta)
+    restored = trainer.restore_elastic(steps, template, shardings)
+    flat_sh = _flat_paths(shardings)
+    with np.load(os.path.join(crash_dir, f"step_{steps:08d}",
+                              "shard_0.npz")) as z:
+        saved = {k: z[k] for k in z.files}
+    flat = _flat_paths(restored)
+    out["elastic"] = {
+        "mesh": list(plan42.mesh.shape),
+        "keys_equal": set(flat) == set(saved),
+        "all_dtensor": all(is_dtensor(v) for v in flat.values()),
+        "placed_as_given": all(
+            tuple(v.placements) == tuple(flat_sh[k][1])
+            and v.device_mesh is plan42.mesh for k, v in flat.items()),
+        "sharded_leaves": sum(any(p.is_shard() for p in v.placements)
+                              for v in flat.values()),
+        "bit_equal": all(np.array_equal(
+            v.full_tensor().numpy(), saved[k]) for k, v in flat.items()),
+    }
+
+    out["seconds_elastic"] = time.perf_counter() - t1
+    # the collective error feedback of this rank's data block over "data"
+    with np.load(g_file) as z:
+        g = torch.from_numpy(z["g"])
+    rows = g.shape[0] // MESH[0]
+    block = g[(rank // MESH[1]) * rows:(rank // MESH[1] + 1) * rows]
+    with sharding_ctx(plan.mesh, plan.rules):
+        reduced, res = error_feedback_reduce(block, torch.zeros_like(block),
+                                             axis_name="data")
+    np.savez(os.path.join(out_dir, f"reduce_{rank}.npz"),
+             reduced=reduced.numpy(), residual=res.numpy())
+    out["seconds"] = time.perf_counter() - t0
+    if rank == 0:
+        _write(out_dir, "train", out)
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def _flat_paths(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        path = prefix + k.replace(".", "/")
+        if isinstance(v, dict):
+            out.update(_flat_paths(v, path + "/"))
+        else:
+            out[path] = v
+    return out
+
+
 def _write(out_dir, name, obj):
     with open(os.path.join(out_dir, f"{name}.json"), "w") as f:
         json.dump(obj, f, indent=1)
@@ -453,7 +646,7 @@ def main(argv):
 
     check, init_file, out_dir = argv[:3]
     fn = {"model": model_rank, "family": family_rank,
-          "serve": serve_rank}[check]
+          "serve": serve_rank, "train": train_rank}[check]
     mp.spawn(fn, args=(init_file, out_dir, *argv[3:]), nprocs=WORLD)
 
 

@@ -16,7 +16,7 @@ same greedy tokens where the unsharded top-2 gap exceeds 0.1, and within
 1e-2 of the unsharded step on an fp32 copy (a bf16 step moves by a few
 bf16 steps under the sharded reduction order: 0.03 here). A two-stage
 plan on the same mesh still refuses to place its parameters
-(``NotImplementedError`` naming part 2b) and leaves them plain.
+(``NotImplementedError`` naming part 2c) and leaves them plain.
 """
 
 import sys
@@ -63,7 +63,7 @@ def test_sharded_loss_grad_and_moe_decode_on_8_ranks(tmp_path):
     want = jax_weights_and_losses(weights)
     got = spawn.run("model", tmp_path, weights)
     staged = got.pop("staged")
-    assert "part 2b" in staged["error"], staged
+    assert "part 2c" in staged["error"], staged
     assert staged["plain"] and not staged["sharded"], staged
     assert set(got) == set(want)
     for name, rec in got.items():

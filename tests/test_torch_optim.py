@@ -3,7 +3,9 @@ package's, on the CPU.
 
 The reference's optimizers run over its stacked parameter tree; the
 port's over its per-layer tensors, grouped by ``bridge.LeafGroup`` into
-the reference's leaves. Here one tree of stacked leaves ([L, 8, 6]
+the reference's leaves. Both optimizers' ``state_specs`` over every
+ported id's parameter specs resolve, in every sharding mode, to the
+reference's PartitionSpec strings. Here one tree of stacked leaves ([L, 8, 6]
 weights, a [L, 6] norm scale, a [L] scalar per layer, an unstacked
 embedding and bias) goes through both, with the same fp32 parameters and
 gradients, for several steps: parameters and state within rtol 1e-6
@@ -17,10 +19,18 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_config as jax_get_config
+from repro.dist import sharding as jsh
+from repro.models.base import build_model as jax_build_model
 from repro.optim.compression import compress_int8 as jax_compress_int8
 from repro.optim.compression import error_feedback_reduce as jax_efr
 from repro.optim.optimizers import adafactor as jax_adafactor
+from repro.optim.optimizers import adamw as jax_adamw
 from repro_torch.bridge import LeafGroup
+from repro_torch.configs import PORTED_IDS, get_config
+from repro_torch.dist import sharding as tsh
+from repro_torch.plan import build_plan
+from repro_torch.plan.passes import param_specs
 from repro_torch.optim import (
     adafactor,
     adamw,
@@ -273,6 +283,84 @@ def test_error_feedback_unbiased_over_time():
 
 
 def test_collective_error_feedback_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    """The collective form is ported now (its 8-rank check against the
+    reference's ``shard_map`` is in ``test_torch_dist_train.py``): over a
+    mesh axis of one device it equals the local form and the reference's
+    local output bit for bit; an axis name needs a mesh."""
+    rng = np.random.default_rng(11)
+    g = rng.standard_normal((8, 32)).astype(np.float32)
+    res = (rng.standard_normal((8, 32)) * 1e-3).astype(np.float32)
+    want = jax_efr(jnp.asarray(g), jnp.asarray(res))
+    local = error_feedback_reduce(torch.from_numpy(g), torch.from_numpy(res))
+    plan = build_plan("yi-6b", debug=True, device="cpu")
+    with tsh.sharding_ctx(plan.mesh, plan.rules):
+        got = error_feedback_reduce(torch.from_numpy(g),
+                                    torch.from_numpy(res), axis_name="data")
+    for a, b, w in zip(got, local, want):
+        assert torch.equal(a, b)
+        np.testing.assert_array_equal(a.numpy(), np.asarray(w))
+    with pytest.raises(RuntimeError, match="names a mesh dim"):
         error_feedback_reduce(torch.zeros(4), torch.zeros(4),
                               axis_name="data")
+    with tsh.sharding_ctx(plan.mesh, plan.rules), \
+            pytest.raises(ValueError, match="lack 'pod'"):
+        error_feedback_reduce(torch.zeros(4), torch.zeros(4),
+                              axis_name="pod")
+
+
+# ---------------------------------------------------------------------------
+# state specs: where the optimizer state lives on a mesh
+# ---------------------------------------------------------------------------
+
+
+class _Mesh:
+    """What both packages read of a mesh: axis names and a devices array
+    (the 2x16x16 production mesh, so that every rule resolves)."""
+
+    axis_names = ("pod", "data", "model")
+    devices = np.zeros((2, 16, 16))
+
+
+def _spec_strings(tree, resolve, prefix=""):
+    """``{path: (shape, logical axes, dtype, PartitionSpec string)}`` of a
+    nested dict of specs whose keys are names or leaf keys (``['a']``)."""
+    out = {}
+    for k, v in tree.items():
+        path = prefix + (k if k.startswith("[") else f"['{k}']")
+        if isinstance(v, dict):
+            out.update(_spec_strings(v, resolve, path))
+        else:
+            out[path] = resolve(v)
+    return out
+
+
+@pytest.mark.parametrize("arch", PORTED_IDS)
+def test_state_specs_equal_reference(arch):
+    """adamw's and adafactor's ``state_specs`` over the full config's
+    parameter specs, in cascade, megatron and megatron_sp: every state
+    leaf's shape, logical axes, dtype and PartitionSpec string equal the
+    reference's (adafactor's ``vr``/``vc`` drop the last and the
+    second-to-last axis, an unfactored leaf keeps ``v``)."""
+    mesh = _Mesh()
+    for mode in jsh.MODES:
+        tspecs = param_specs(get_config(arch).with_(sharding_mode=mode))
+        jspecs = jax_build_model(jax_get_config(arch).with_(
+            sharding_mode=mode)).param_specs()
+        trules, jrules = tsh.rules_for_mode(mode), jsh.rules_for_mode(mode)
+
+        def tview(s):
+            return (s.shape, s.logical, str(s.dtype)[6:],
+                    str(tsh.spec_to_pspec(s, mesh, trules)))
+
+        def jview(s):
+            return (tuple(s.shape), tuple(s.logical), np.dtype(s.dtype).name,
+                    str(jsh.spec_to_pspec(s, mesh, jrules)))
+
+        for tmake, jmake in ((adamw, jax_adamw), (adafactor, jax_adafactor)):
+            got = _spec_strings(tmake().state_specs(dict(tspecs)), tview)
+            leaves, _ = jax.tree_util.tree_flatten_with_path(
+                jmake().state_specs(jspecs),
+                is_leaf=lambda x: isinstance(x, jsh.ParamSpec))
+            want = {jax.tree_util.keystr(p): jview(v) for p, v in leaves}
+            assert got == want, (mode, tmake.__name__, sorted(
+                set(got) ^ set(want))[:5])

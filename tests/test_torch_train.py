@@ -15,6 +15,7 @@ fp32 copies, where the microbatch mean equals the full batch's to rtol
 import json
 import os
 import re
+import types
 
 import jax
 import jax.numpy as jnp
@@ -161,6 +162,15 @@ def test_checkpoint_roundtrip_and_retention(tmp_path):
     assert got["step"].dtype == torch.int32 and int(got["step"]) == 7
     with pytest.raises(ValueError, match="checkpoint shape"):
         mgr.restore(30, {**template, "step": torch.empty(2)})
+    # restore reads the members by their offsets, CRC-32 checked: a
+    # flipped bit in an array's bytes is refused
+    npz = tmp_path / "step_00000030" / "shard_0.npz"
+    raw = bytearray(npz.read_bytes())
+    at = raw.index(np.arange(6.0, dtype=np.float32).tobytes())
+    raw[at + 5] ^= 1
+    npz.write_bytes(bytes(raw))
+    with pytest.raises(ValueError, match="bad CRC-32 for params/w"):
+        mgr.restore(30, template)
 
 
 def test_checkpoint_tmp_is_atomic(tmp_path):
@@ -211,6 +221,33 @@ def test_trainer_checkpoint_keys_are_the_reference(tmp_path):
 # ---------------------------------------------------------------------------
 
 
+def test_checkpoint_restores_onto_a_mesh(tmp_path):
+    """The reference's elastic restore (``tests/test_train_fault.py``): a
+    checkpoint written plain restores onto a (1x1) mesh at the placements
+    given, as a DTensor; a DTensor template leaf with no sharding given is
+    placed at its own placements."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = build_plan("yi-6b", debug=True, device="cpu").mesh
+    mgr = CheckpointManager(str(tmp_path), keep=2)
+    state = {"w": torch.arange(16, dtype=torch.float32).reshape(4, 4)}
+    mgr.save(5, state)
+    sh = {"w": (mesh, [Replicate(), Replicate()])}
+    restored = mgr.restore(5, state, shardings=sh)
+    assert isinstance(restored["w"], DTensor)
+    assert restored["w"].device_mesh is mesh
+    assert list(restored["w"].placements) == sh["w"][1]
+    assert torch.equal(restored["w"].full_tensor(), state["w"])
+    like = mgr.restore(5, {"w": restored["w"].redistribute(
+        mesh, [Shard(1), Replicate()])})
+    assert list(like["w"].placements) == [Shard(1), Replicate()]
+    assert torch.equal(like["w"].full_tensor(), state["w"])
+    # and a DTensor state saves its whole value, in the reference's keys
+    mgr.save(6, {"w": like["w"]})
+    assert np.array_equal(np.load(tmp_path / "step_00000006" /
+                                  "shard_0.npz")["w"], state["w"].numpy())
+
+
 def test_failure_injector_fires_once():
     inj = FailureInjector(fail_at_steps=(3,))
     inj.check(2)
@@ -230,7 +267,10 @@ def test_straggler_monitor_flags_outliers():
 
 def test_step_timing_immune_to_wall_clock_jumps(tmp_path, monkeypatch):
     """Step durations use the monotonic clock: a wall clock that jumps an
-    hour on every call must not reach ``dt`` nor spoof the monitor."""
+    hour on every call must not reach ``dt`` nor spoof the monitor. The
+    trainer's monotonic clock is a fake one that ticks 0.25 s per read,
+    so that a step slowed by a loaded host cannot flag a straggler: each
+    ``dt`` must be exactly one tick apart."""
     base = [1_000_000.0]
     calls = []
 
@@ -239,7 +279,15 @@ def test_step_timing_immune_to_wall_clock_jumps(tmp_path, monkeypatch):
         calls.append(None)
         return base[0]
 
+    ticks = [0.0]
+
+    def monotonic_ticks():
+        ticks[0] += 0.25
+        return ticks[0]
+
     monkeypatch.setattr(trainer_mod.time, "time", jumping_wall_clock)
+    monkeypatch.setattr(trainer_mod, "time", types.SimpleNamespace(
+        time=jumping_wall_clock, perf_counter=monotonic_ticks))
     model = _model()
     opt = adamw(lr=1e-3)
     t = Trainer(model_loss, opt, TrainerConfig(
@@ -250,6 +298,7 @@ def test_step_timing_immune_to_wall_clock_jumps(tmp_path, monkeypatch):
     assert len(hist) == 5
     for h in hist:
         assert 0.0 <= h["dt"] < 3600.0, h
+        assert h["dt"] == 0.25, h
     assert t.monitor.events == []
 
 
@@ -391,10 +440,104 @@ def test_train_cli_on_the_cpu(tmp_path, capsys):
     train_cli.main(["--arch", "yi-6b", "--debug", "--steps", "8",
                     "--device", "cpu", "--ckpt-dir", ckpt])
     assert "nothing to do" in capsys.readouterr().out
-    for flag in (["--stages", "2"], ["--multi-pod"], ["--mode", "cascade"]):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-            train_cli.main(["--arch", "yi-6b", "--debug", "--device", "cpu",
-                            "--ckpt-dir", ckpt, *flag])
+    # the mesh flags run sharded on the 1x1 mesh (``--multi-pod`` is
+    # ignored under --debug, as in the reference; two stages fall back to
+    # one): each restores the plain checkpoint onto the mesh, at step 8
+    for flag, want in ((["--stages", "2"], "cannot hold 2 equal stages"),
+                       (["--multi-pod"], "mesh debug:1x1"),
+                       (["--mode", "cascade"], "mode=cascade")):
+        train_cli.main(["--arch", "yi-6b", "--debug", "--steps", "8",
+                        "--device", "cpu", "--ckpt-dir", ckpt, *flag])
+        out = capsys.readouterr().out
+        assert "(sharded)" in out and want in out, out
+        assert "nothing to do" in out, out
+
+
+def test_train_cli_mesh_flags(tmp_path, capsys):
+    """``--debug --mode megatron`` trains sharded on the 1x1 mesh;
+    ``--multi-pod`` without ``--debug`` asks for the 2x16x16 production
+    mesh and exits with the reference's count error before any model is
+    allocated."""
+    train_cli.main(["--arch", "yi-6b", "--debug", "--mode", "megatron",
+                    "--steps", "2", "--device", "cpu", "--ckpt-dir",
+                    str(tmp_path / "m")])
+    out = capsys.readouterr().out.splitlines()
+    assert "(sharded) mode=megatron stages=1" in out[0], out
+    assert [line.split()[1] for line in out if line.startswith("step ")] \
+        == ["0", "1"], out
+    assert re.match(r"done: loss [\d.]+ -> [\d.]+$", out[-1]), out
+    with pytest.raises(RuntimeError, match="need 512 devices, have 1"):
+        train_cli.main(["--arch", "yi-6b", "--multi-pod", "--device", "cpu",
+                        "--ckpt-dir", str(tmp_path / "p")])
+    assert not (tmp_path / "p").exists() or not os.listdir(tmp_path / "p")
+
+
+def _whole(tree):
+    from repro_torch.dist.sharding import local_value
+
+    return {k: _whole(v) if isinstance(v, dict) else local_value(v)
+            for k, v in tree.items()}
+
+
+def _equal_trees(a, b):
+    return all(_equal_trees(v, b[k]) if isinstance(v, dict)
+               else torch.equal(v, b[k]) for k, v in a.items())
+
+
+def test_sharded_training_on_a_one_by_one_gloo_mesh(tmp_path):
+    """The card's set-up on the CPU (``chip_smoke.py`` phase 20): on the
+    world-1 1x1 mesh every shard is whole, so 3 sharded bf16 adamw steps
+    (DTensor parameters, the state placed by ``state_specs``) are the
+    plain trainer's bit for bit, and so is the plan's train executable; a
+    crash at step 2 resumes on the mesh bit for bit; the plain run's
+    checkpoint restores onto the mesh (DTensors at the plan's placements)
+    and back."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.bridge import params_template
+
+    shape = ShapeSpec("t", 16, 4, "train")
+    plan = build_plan(_cfg(), shape, mode="megatron", device="cpu")
+
+    def run(sub, shard, **kw):
+        model, opt_state = plan.init_train_state(seed=0, shard=shard)
+        t = Trainer(model_loss, plan.optimizer, TrainerConfig(
+            steps=3, log_every=100, ckpt_dir=str(tmp_path / sub),
+            **kw.pop("cfg", {})), mesh=plan.mesh if shard else None,
+            rules=plan.rules)
+        t.injector = kw.pop("injector", None)
+        return t.fit(model, opt_state, _iter_factory(), **kw)
+
+    pa, oa, ha = run("a", False, resume=False)
+    pb, ob, hb = run("b", True, resume=False)
+    assert all(isinstance(p, DTensor) for p in pb.parameters())
+    assert all(isinstance(v, DTensor) for v in ob["m"].values())
+    assert [h["loss"] for h in ha] == [h["loss"] for h in hb]
+    assert _equal_trees(_params(pa), _whole(_params(pb)))
+    assert _equal_trees(oa, _whole(ob))
+    # the plan's train executable on the sharded model
+    model, opt_state = plan.init_train_state(seed=0, shard=True)
+    batch = {k: torch.from_numpy(v) for k, v in
+             next(_iter_factory()(0)).items()}
+    metrics = plan.executable("train").fn(model, opt_state, batch)
+    assert float(metrics["loss"].full_tensor()) == ha[0]["loss"]
+    # a crash at step 2 (checkpoint at 2), resumed on the mesh
+    with pytest.raises(InjectedFailure):
+        run("c", True, cfg=dict(ckpt_every=2),
+            injector=FailureInjector(fail_at_steps=(2,)))
+    pc, oc, hc = run("c", True, cfg=dict(ckpt_every=2))
+    assert hc[0]["step"] == 2
+    assert _equal_trees(_whole(_params(pc)), _whole(_params(pb)))
+    assert _equal_trees(_whole(oc), _whole(ob))
+    # the plain checkpoint onto the mesh and back
+    template = {"params": params_template(pa), "opt": oa,
+                "res": init_residuals(pa, leaf_groups(pa), False)}
+    ckpt = CheckpointManager(str(tmp_path / "a"))
+    plain = ckpt.restore(3, template)
+    placed = ckpt.restore(3, template,
+                          shardings=plan.train_state_shardings(pb))
+    assert placed["opt"]["m"]["blocks.attn.wq.w"].device_mesh is plan.mesh
+    assert _equal_trees(plain, _whole(placed))
 
 
 def test_train_cli_frontend_family(tmp_path, capsys):
