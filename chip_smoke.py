@@ -111,11 +111,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    time and device split, paged and dense.
 
 11. The hybrid family at full width: zamba2-2.7b, cut in depth for the
-   run's time limit to 30 of its 54 Mamba2 layers (5 of its 9 groups of
+   run's time limit to 18 of its 54 Mamba2 layers (3 of its 9 groups of
    6, one weight-shared attention block after each group), d_model 2560,
    32 heads of dim 80, random bf16 weights from seed 0; the yi-6b model is
    freed first. Prefill [2, 2048] through the plan's
-   ``executable("prefill")``: flash must launch exactly 5 times per call
+   ``executable("prefill")``: flash must launch exactly 3 times per call
    (one per call site, head dim 80), each launch within the bf16 flash
    tolerance of the plain attention on its own inputs. The random Mamba2
    stack is chaotic (a 2**-8 relative noise on the embeddings decorrelates
@@ -126,8 +126,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    one paged wave and one dense wave of the same 12 requests (42-48
    prompt tokens drawn apart, so no two share a full page,
    ``max_new_tokens`` staggered over 4-24), each counted from zero:
-   qmatmul must launch 6 x 4 per micro-run (the LM head and the shared
-   block's down-projection at 5 call sites) and flash never; the scheduler
+   qmatmul must launch 4 x 4 per micro-run (the LM head and the shared
+   block's down-projection at 3 call sites) and flash never; the scheduler
    must refill slots; every stream is held, by phase 9's gap rule, to a
    plain greedy loop over ``HybridModel.decode_step`` replayed after the
    wave at the positions each request ran at, in batches of 8 (so every
@@ -145,14 +145,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    wave of 12 requests counted from zero, every stream held by phase 9's
    gap rule to the plain loop replayed at its positions in batches of 8;
    a prefill line and a micro-run line with the profiler split):
-   12. qwen1.5-4b (QKV bias, vocab 151,936) cut in depth to 20 of its 40
-       layers for the run's time limit (phase 17 trains all 40): 20 flash
+   12. qwen1.5-4b (QKV bias, vocab 151,936) cut in depth to 10 of its 40
+       layers for the run's time limit (phase 17 trains all 40): 10 flash
        launches per prefill, each held to the plain attention on its own
        inputs, and the logits held to ``PREFILL_TOL`` against the plain
        chunked attention; phase 9's first wave (shared system prompt);
-       qmatmul 21 x 4 per micro-run (the head and 20 down-projections).
-   13. phi3.5-moe-42b-a6.6b cut in depth to 24 of its 32 layers (the whole
-       model does not fit one card): 24 flash launches per prefill, each
+       qmatmul 11 x 4 per micro-run (the head and 10 down-projections).
+   13. phi3.5-moe-42b-a6.6b cut in depth to 12 of its 32 layers (the whole
+       model does not fit one card; 12 for the run's time limit): 12 flash
+       launches per prefill, each
        held as for qwen; the share of expert assignments that capacity
        dropped; rounding-sized differences flip the random router's
        choices, so the free logits are printed beside the 2**-8 noise
@@ -160,7 +161,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
        the full depth with the plain forward taking the flash forward's
        routing; phase 9's first wave; qmatmul 1 x 4 per micro-run (the
        head; the expert FFNs stay float, as in the reference).
-   14. rwkv6-7b at full width, cut in depth to 8 of its 32 layers (the
+   14. rwkv6-7b at full width, cut in depth to 4 of its 32 layers (the
        run's time limit; 64 wkv heads of 64): no flash; the prefill of
        the first 64 tokens against 64 decode steps over them, printed at
        the cut depth beside the noise yardstick (the random stack is chaotic,
@@ -190,16 +191,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
        to the plain attention on its own inputs, and ``PREFILL_TOL`` at
        full depth; qmatmul 0 x 4 per micro-run (its GELU MLP has no
        quantized route).
-   16. llama-3.2-vision-90b at full width, cut to 6 of its 20 superblocks
-       (30 of 100 layers, 27.8 B parameters): every cross gate drawn from
+   16. llama-3.2-vision-90b at full width, cut to 3 of its 20 superblocks
+       (15 of 100 layers): every cross gate drawn from
        a seed, uniform in [0.5, 1] (the reference starts them at zero);
-       prefill of tokens [2, 2048] and vision [2, 4096, 8192] bf16: 24
+       prefill of tokens [2, 2048] and vision [2, 4096, 8192] bf16: 12
        flash launches, each held on its own inputs, ``PREFILL_TOL`` at the
        cut depth, the logits with the gates as set against the gates at 0
        (how far the cross-attention moves them), and 64 decode steps over
        ``init_cross_cache(vision)`` held to the forward's first 64
-       positions by ``PREFILL_TOL``; qmatmul 24 x 4 per micro-run (the 4
-       self blocks' down-projections in each of 6 superblocks).
+       positions by ``PREFILL_TOL``; qmatmul 12 x 4 per micro-run (the 4
+       self blocks' down-projections in each of 3 superblocks).
    Phase 2 also holds qmatmul at 8x28672x8192 a16w8 (the vlm
    down-projection) with split-K on and off, and phase 5 holds flash at
    [2*16, 2048, 64] bf16 non-causal, [2*16, 512, 64] causal and [2*64,
@@ -252,6 +253,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
     --mode megatron --steps 2`` runs in its own process beside the
     phase. Prints the step times beside the plain resume's, the peak
     memory and the save time from the mesh.
+21. The staged placement and the production dry run, each in a process
+    of its own (``chip_smoke.py --staged-placement`` and one
+    ``python -m repro_torch.launch.dryrun`` per cell, all started
+    together). The placement process holds yi-6b at full width (random
+    bf16 from seed 0) and, as rank 0 and then rank 4 of a fake world of 8
+    (``launch.mesh.placeholder_world``) on a 2x4 ``cuda`` mesh, places
+    the two-stage megatron plan's parameters
+    (``plan.iter_shard_params``): every local shard must be
+    ``torch.equal`` to its slice of the plain parameter; the growth of the
+    caching allocator's requested bytes over the placement must equal the
+    shards' bytes, and its allocated bytes (each block rounded up to 512
+    bytes, a large block's unsplit remainder of up to 1 MB with it) must
+    cover them in 512-byte blocks; the dry run's per-device parameter
+    bytes for the same plan (``launch.dryrun.placed_param_bytes``, on
+    meta) must equal the shards' bytes; and the two ranks' staged members
+    must be disjoint and cover all 32 layers. The dry-run cells: yi-6b
+    ``train_4k`` single-pod with one and with two stages, phi3.5-moe
+    ``decode_32k`` multi-pod, zamba2 ``long_500k`` single-pod (each "1
+    ok") and yi-6b ``long_500k`` (skipped with the reference's reason);
+    each record's memory and roofline lines are printed.
 
 Roofline lines: the yi-6b prefill (phase 6), the yi-6b quantized paged
 micro-run (phase 9) and the qwen1.5-4b train step (phase 17) each run one
@@ -391,18 +412,17 @@ FLASH_PATH_HYBRID = (PREFILL_BATCH * 32, PREFILL_SEQ, PREFILL_SEQ, 80,
                      "bf16", True, 0, False)
 HYBRID_PROMPT = (42, 48)      # prompt lengths: phase 9's 40 + 2-8
 # phases 12-14: the other dense configs, the MoE family and RWKV at full
-# width; phi3.5-moe is cut in depth to 24 of its 32 layers (31.5 B
-# parameters, 62.9 GB in bf16: the whole model's 83.7 GB does not fit one
-# 80 GB card)
+# width; phi3.5-moe cannot run whole on one 80 GB card (83.7 GB in bf16)
 QWEN_ARCH, RWKV_ARCH = "qwen1.5-4b", "rwkv6-7b"
 MOE_ARCH = "phi3.5-moe-42b-a6.6b"
-MOE_LAYERS = 24
-# rwkv6-7b (8 of its 32 layers), zamba2 (30 of 54: 5 of 9 groups) and
-# qwen1.5-4b (20 of 40) are cut in depth for the run's time limit: their
+MOE_LAYERS = 12
+# rwkv6-7b (4 of its 32 layers), zamba2 (18 of 54: 3 of 9 groups),
+# qwen1.5-4b (10 of 40), phi3.5-moe (12 of 32) and llama-3.2-vision (3 of
+# 20 superblocks) are cut in depth for the run's time limit: their
 # serving waves and plain replays are host-bound (rwkv6's prefill loops
 # over the tokens on the host layer by layer), so their time scales with
-# the layers
-RWKV_LAYERS, HYBRID_LAYERS, QWEN_LAYERS = 8, 30, 20
+# the layers; a slower host took 1,167 s with twice these depths
+RWKV_LAYERS, HYBRID_LAYERS, QWEN_LAYERS = 4, 18, 10
 FLASH_PATH_QWEN = (PREFILL_BATCH * 20, PREFILL_SEQ, PREFILL_SEQ, 128, "bf16",
                    True, 0, False)
 # phases 15-16: the cross-attention families. seamless-m4t-large-v2 at its
@@ -410,12 +430,11 @@ FLASH_PATH_QWEN = (PREFILL_BATCH * 20, PREFILL_SEQ, PREFILL_SEQ, 128, "bf16",
 # flash, head dim 64) and max(2048 // 4, 128) = 512 tokens through the
 # decoder (causal flash); its cross-attention (512 queries over 2048 frames)
 # runs the plain path, as in the reference. llama-3.2-vision-90b at full
-# width, cut in depth to 6 of its 20 superblocks (30 of 100 layers, 27.8 B
-# parameters, 55.5 GB in bf16: the whole model's 175 GB does not fit one
-# 80 GB card); its self-attention runs causal flash at head dim 128 and its
+# width, cut in depth (the whole model's 175 GB does not fit one 80 GB
+# card); its self-attention runs causal flash at head dim 128 and its
 # cross-attention (2048 queries over 4096 patches) the plain path
 SEAMLESS_ARCH, VLM_ARCH = "seamless-m4t-large-v2", "llama-3.2-vision-90b"
-VLM_SUPERBLOCKS = 6
+VLM_SUPERBLOCKS = 3
 SEAMLESS_DEC_SEQ = max(PREFILL_SEQ // 4, 128)
 FLASH_PATH_SEAMLESS_ENC = (PREFILL_BATCH * 16, PREFILL_SEQ, PREFILL_SEQ, 64,
                            "bf16", False, 0, False)
@@ -468,6 +487,20 @@ SHARDED_PATH = "yi-6b sharded 1x1 prefill/fifo (phase 7)"
 MESH_CLI_TIMEOUT_S = 30
 MESH_CLI_FAILS = ((["--data", "2"], "need 2 devices, have 1"),
                   (["--multi-pod"], "need 512 devices, have 1"))
+
+# phase 21: the staged placement at full width as two ranks of a fake
+# world of 8, and the dry run's cells, each process with its time limit
+STAGED_ARCH, STAGED_MESH, STAGED_RANKS = "yi-6b", (2, 4), (0, 4)
+STAGED_TIMEOUT_S = 150
+ALLOC_BLOCK = 512                 # the caching allocator's smallest block
+DRYRUN_TIMEOUT_S = 150
+DRYRUN_CELLS = (                  # (arch, shape, flags, status)
+    ("yi-6b", "train_4k", ["--single-pod", "--stages", "1"], "ok"),
+    ("yi-6b", "train_4k", ["--single-pod", "--stages", "2"], "ok"),
+    ("phi3.5-moe-42b-a6.6b", "decode_32k", ["--multi-pod"], "ok"),
+    ("zamba2-2.7b", "long_500k", ["--single-pod"], "ok"),
+    ("yi-6b", "long_500k", ["--single-pod"], "skipped"),
+)
 
 # phase 18: adafactor at mistral-large's full width, cut to 2 of 88 layers
 ADAFACTOR_ARCH, ADAFACTOR_LAYERS = "mistral-large-123b", 2
@@ -2790,6 +2823,180 @@ def run_plan_cli(smi):
     return launched
 
 
+def staged_placement() -> int:
+    """Phase 21's placement process (``chip_smoke.py --staged-placement``):
+    yi-6b at full width resident on the card, then placed by the
+    two-stage megatron plan on a 2x4 ``cuda`` mesh as rank 0 and as rank 4
+    of a fake world of 8 (see the module docstring). Prints one line per
+    rank and a ``STAGED {json}`` line of the figures."""
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset,
+    )
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.staging import stage_band
+    from repro_torch.launch.dryrun import placed_param_bytes
+    from repro_torch.launch.mesh import placeholder_world
+    from repro_torch.models.base import build_model
+    from repro_torch.plan import MeshSpec, build_plan
+
+    def allocated():
+        stats = torch.cuda.memory_stats()
+        return (stats["allocated_bytes.all.current"],
+                stats["requested_bytes.all.current"])
+
+    def plan_of(stages, device):
+        return build_plan(STAGED_ARCH, mode="megatron",
+                          mesh_spec=MeshSpec.debug(*STAGED_MESH),
+                          pipeline_stages=stages, device=device)
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    dev = torch.device("cuda")
+    cfg = get_config(STAGED_ARCH)
+    model = build_model(cfg, device=dev).init_params(0)
+    params = dict(model.named_parameters())
+    world = STAGED_MESH[0] * STAGED_MESH[1]
+    figures, layers = {}, {}
+    for rank in STAGED_RANKS:
+        placeholder_world(world, rank)
+        plan = plan_of(2, dev)
+        plan.param_placements()          # the mesh first: not counted
+        torch.cuda.synchronize()
+        base = allocated()
+        t = time.perf_counter()
+        placed = dict(plan.iter_shard_params(model))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        grew, asked = (a - b for a, b in zip(allocated(), base))
+        held = blocks = empty = 0
+        layers[rank] = set()
+        for name, dt in placed.items():
+            local = dt.to_local()
+            nbytes = local.numel() * local.element_size()
+            held += nbytes
+            blocks += -(-nbytes // ALLOC_BLOCK) * ALLOC_BLOCK
+            band = stage_band(dt)
+            if nbytes == 0:
+                if band is None or band.owner():
+                    raise AssertionError(f"rank {rank} {name}: no shard")
+                empty += 1
+                continue
+            shape, offset = compute_local_shape_and_global_offset(
+                dt.shape, dt.device_mesh, dt.placements)
+            window = params[name][tuple(slice(o, o + n)
+                                        for o, n in zip(offset, shape))]
+            if not torch.equal(local, window):
+                raise AssertionError(f"rank {rank} {name}: the shard is not "
+                                     f"its slice of the parameter")
+            if band is not None:
+                layers[rank].add(int(name.split(".")[1]))
+        if asked != held or grew < blocks:
+            raise AssertionError(f"rank {rank}: requested +{asked} and "
+                                 f"allocated +{grew} bytes; the shards take "
+                                 f"{held}, {blocks} in 512-byte blocks")
+        dry = placed_param_bytes(plan_of(2, "meta"))["param_bytes"]
+        one = placed_param_bytes(plan_of(1, "meta"))["param_bytes"]
+        if dry != held:
+            raise AssertionError(f"rank {rank}: the dry run counts {dry} "
+                                 f"parameter bytes, the shards hold {held}")
+        lo, hi = min(layers[rank]), max(layers[rank])
+        print(f"staged 2x4 rank {rank} of a fake world of {world} "
+              f"({STAGED_ARCH} megatron, 2 stages): {len(placed)} tensors "
+              f"placed in {secs:.1f} s, all torch.equal to their slices; "
+              f"staged members of layers [{lo}, {hi}] held, {empty} of the "
+              f"other band empty; shards {held} bytes ({held / 1e9:.3f} "
+              f"GB) == requested +{asked}; allocated +{grew} ({blocks} in "
+              f"512-byte blocks, +{grew - blocks} in large blocks the "
+              f"allocator does not split); dry run {dry} bytes; the "
+              f"one-stage 2x4 plan's rank holds {one} bytes "
+              f"({one / 1e9:.3f} GB) [{smi}]")
+        figures[rank] = dict(held=held, asked=asked, grew=grew,
+                             blocks=blocks, dry=dry, one_stage=one,
+                             layers=[lo, hi], empty=empty, seconds=secs)
+        del placed, dt, local, window
+    a, b = (layers[r] for r in STAGED_RANKS)
+    if a & b or a | b != set(range(cfg.n_layers)):
+        raise AssertionError(f"ranks {STAGED_RANKS} hold layers {sorted(a)} "
+                             f"and {sorted(b)}")
+    torch.distributed.destroy_process_group()
+    print("STAGED " + json.dumps(figures))
+    return 0
+
+
+def run_staged(smi):
+    """Phase 21: the dry-run cells (one process each) and the staged
+    placement process, all started together; each must exit 0 within its
+    limit. Prints the placement's lines and each cell's memory and
+    roofline lines. Returns the placement's figures."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out_dir = ROOT / "build" / "dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t = time.perf_counter()
+    procs = []
+    try:
+        for i, (arch, shape, flags, want) in enumerate(DRYRUN_CELLS):
+            out = out_dir / f"cell{i}.json"
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--shape", shape, *flags, "--out",
+                   str(out)]
+            procs.append((cmd, want, out, subprocess.Popen(
+                cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)))
+        placement = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"),
+             "--staged-placement"], cwd=ROOT, env=env, capture_output=True,
+            text=True, timeout=STAGED_TIMEOUT_S)
+        for line in placement.stdout.splitlines():
+            if not line.startswith("STAGED "):
+                print(f"  placement | {line}")
+        if placement.returncode != 0:
+            raise AssertionError(f"staged placement exited "
+                                 f"{placement.returncode}: "
+                                 f"{placement.stderr[-3000:]}")
+        figures = json.loads(next(
+            line for line in placement.stdout.splitlines()
+            if line.startswith("STAGED "))[len("STAGED "):])
+        for cmd, want, out, proc in procs:
+            stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+            tail = stdout.strip().splitlines()[-1] if stdout.strip() else ""
+            if not out.exists():
+                raise AssertionError(f"{' '.join(cmd[2:])} exited "
+                                     f"{proc.returncode}: {stderr[-3000:]}")
+            (rec,) = json.loads(out.read_text())
+            if proc.returncode != 0:
+                raise AssertionError(f"{' '.join(cmd[2:])} exited "
+                                     f"{proc.returncode}: "
+                                     f"{rec.get('traceback', '')[-3000:]}")
+            if rec["status"] != want:
+                raise AssertionError(f"{' '.join(cmd[4:8])}: {rec}")
+            label = (f"dry run {rec['arch']} {rec['shape']} {rec['mesh']} "
+                     f"{rec['mode']} stages={rec['stages']}")
+            if want == "skipped":
+                print(f"{label}: skipped ({rec['reason']}); {tail}")
+                continue
+            mem, r = rec["memory"], rec["roofline"]
+            useful = r["model_flops_per_chip"]
+            print(f"{label}: memory per device {json.dumps(mem)}; traced in "
+                  f"{rec['trace_s']} s on the host; {tail} [{smi}]")
+            print(f"{label}: roofline per device on the H100 target C="
+                  f"{r['compute_s']:.4g} s M={r['memory_s']:.4g} s N="
+                  f"{r['collective_s']:.4g} s dom={r['dominant']}, flops "
+                  f"{r['hlo_flops_per_chip']:.4g} (model {useful:.4g}), "
+                  f"collectives {r['collective_op_counts']} [{smi}]")
+            if rec.get("stage_slices"):
+                print(f"{label}: stage slices {rec['stage_slices']}")
+    finally:
+        for *_, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(f"phase 21: {len(DRYRUN_CELLS)} dry-run cells and the placement "
+          f"in {time.perf_counter() - t:.1f} s")
+    return figures
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one card",
@@ -3001,6 +3208,10 @@ def main() -> int:
     sharded_train = run_sharded_training(dev, flash_ops, ops,
                                          trained["restart"], smi)
     print(f"phase 20 done at {time.perf_counter() - t_start:.1f} s")
+    # phase 21: the staged placement and the dry run, processes of their own
+    free_card()
+    run_staged(smi)
+    print(f"phase 21 done at {time.perf_counter() - t_start:.1f} s")
     train_paths = {
         f"{TRAIN_ARCH} adamw train, {TRAIN_STEPS} steps (phase 17)":
             trained["launches"],
@@ -3089,4 +3300,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--staged-placement"]:
+        sys.exit(staged_placement())
     sys.exit(main())

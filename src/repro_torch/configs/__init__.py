@@ -62,6 +62,11 @@ def get_config(name: str) -> ArchConfig:
     return importlib.import_module(f"repro_torch.configs.{mod_name}").CONFIG
 
 
+def list_archs() -> List[str]:
+    """Every architecture id (the reference's ``list_archs``)."""
+    return list(ARCH_IDS)
+
+
 def reduced_config(name: str) -> ArchConfig:
     """Tiny structure-preserving config of the same family (CPU tests)."""
     cfg = get_config(name)
@@ -87,4 +92,4 @@ def reduced_config(name: str) -> ArchConfig:
 
 __all__ = ["ALIASES", "ARCH_IDS", "PAPER_MODELS", "PENDING_FAMILIES",
            "PORTED_IDS", "build_paper_graph", "build_paper_model",
-           "get_config", "reduced_config"]
+           "get_config", "list_archs", "reduced_config"]

@@ -440,11 +440,11 @@ def reshape(x: torch.Tensor, *shape: int) -> torch.Tensor:
     splits or merges is first replicated on that mesh dim: DTensor cannot
     split a sharded dim that its mesh dim does not divide evenly, nor
     merge it with its neighbours (XLA pads instead). Dims the reshape
-    keeps, a common prefix and suffix, keep their sharding."""
+    keeps, a common prefix and suffix, keep their sharding. The backward
+    does the same for the gradient, which DTensor may hand back sharded
+    on a dim the forward merged."""
     if not is_dtensor(x):
         return x.reshape(*shape)
-    from torch.distributed.tensor import Replicate
-
     old = tuple(x.shape)
     new = tuple(torch.empty(old, device="meta").reshape(*shape).shape)
     lo = 0
@@ -454,11 +454,35 @@ def reshape(x: torch.Tensor, *shape: int) -> torch.Tensor:
     while (hi < min(len(old), len(new)) - lo
            and old[len(old) - 1 - hi] == new[len(new) - 1 - hi]):
         hi += 1
-    placements = [Replicate() if p.is_shard() and lo <= p.dim < len(old) - hi
-                  else p for p in x.placements]
-    if placements != list(x.placements):
-        x = x.redistribute(x.device_mesh, placements)
-    return x.reshape(*new)
+    return _Reshape.apply(_replicate_dims(x, lo, len(old) - hi), new, lo,
+                          len(new) - hi)
+
+
+def _replicate_dims(x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """The DTensor ``x`` with its tensor dims ``[lo, hi)`` replicated."""
+    from torch.distributed.tensor import Replicate
+
+    placements = [Replicate() if p.is_shard() and lo <= p.dim < hi else p
+                  for p in x.placements]
+    if placements == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, placements)
+
+
+class _Reshape(torch.autograd.Function):
+    """A DTensor view whose touched dims ``[lo, hi)`` (in the output's
+    coordinates) are replicated on the gradient before it is viewed
+    back."""
+
+    @staticmethod
+    def forward(ctx, x, new, lo, hi):
+        ctx.shape, ctx.span = tuple(x.shape), (lo, hi)
+        return x.reshape(*new)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (_replicate_dims(grad, *ctx.span).reshape(*ctx.shape), None,
+                None, None)
 
 
 def whole(x: torch.Tensor, *dims: int) -> torch.Tensor:
@@ -510,30 +534,95 @@ def local_product(fn, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return DTensor.from_local(y, mesh, out, run_check=False)
 
 
+def local_einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, a, b)`` of DTensors on each rank's shards. Per
+    mesh dim only a letter both operands and the output carry (a batch
+    letter) stays sharded, on both operands alike; every other dim is
+    gathered. DTensor's own einsum flattens the batch letters into one
+    dim, and when two mesh dims shard two of them it cannot view the
+    product back (``[B, H, ...]`` with B on ``data`` and H on
+    ``model``)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    ins, out = eq.split("->")
+    la, lb = ins.split(",")
+    mesh = next(t.device_mesh for t in (a, b) if is_dtensor(t))
+    a, b = replicated(a, mesh), replicated(b, mesh)
+    pa, pb, po = [], [], []
+    for i in range(mesh.ndim):
+        letter = None
+        for t, letters in ((a, la), (b, lb)):
+            p = t.placements[i]
+            if p.is_shard() and letters[p.dim] in lb and \
+                    letters[p.dim] in la and letters[p.dim] in out:
+                letter = letters[p.dim]
+                break
+        if letter is None:
+            pa.append(Replicate())
+            pb.append(Replicate())
+            po.append(Replicate())
+        else:
+            pa.append(Shard(la.index(letter)))
+            pb.append(Shard(lb.index(letter)))
+            po.append(Shard(out.index(letter)))
+    shape = torch.einsum(eq, torch.empty(a.shape, device="meta"),
+                         torch.empty(b.shape, device="meta")).shape
+    y = torch.einsum(eq, a.redistribute(mesh, pa).to_local(),
+                     b.redistribute(mesh, pb).to_local())
+    return DTensor.from_local(y, mesh, po, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
+
+
 def local_value(x: torch.Tensor) -> torch.Tensor:
     """The whole value of ``x`` as a plain tensor on this rank (a DTensor
-    is gathered; a plain tensor is returned as it is): what the host reads
-    back, tokens and logits."""
-    return x.full_tensor() if is_dtensor(x) else x
+    is gathered, a staged member from its band; a plain tensor is returned
+    as it is): what the host reads back, tokens and logits."""
+    if not is_dtensor(x):
+        return x
+    from repro_torch.dist.staging import gather_member
 
-
-def leaf_placements(member: Sequence[Any], nstack: int) -> List[Any]:
-    """A stacked leaf's placements from one member's: each ``Shard(d)``
-    moves past the ``nstack`` stacked dims, which replicate (a one-stage
-    plan never shards its ``layers`` dims)."""
-    from torch.distributed.tensor import Shard
-
-    return [Shard(p.dim + nstack) if p.is_shard() else p for p in member]
+    return gather_member(x).full_tensor()
 
 
 def place(x: torch.Tensor, mesh, placements: Sequence[Any]):
     """``x``, the whole value and the same on every rank, as a DTensor at
     ``placements``: each rank keeps its own shard of its own copy, so no
     data moves between ranks (``distribute_tensor`` with no source
-    rank)."""
-    from torch.distributed.tensor import distribute_tensor
+    rank). The shard is new memory, never a view of ``x`` (which
+    ``distribute_tensor`` returns for a replicated layout), so ``x`` can be
+    freed after. A ``meta`` tensor becomes a DTensor of meta shards
+    (:func:`meta_placed`)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
 
-    return distribute_tensor(x, mesh, list(placements), src_data_rank=None)
+    if x.is_meta:
+        return meta_placed(x.shape, x.dtype, mesh, placements)
+    d = distribute_tensor(x, mesh, list(placements), src_data_rank=None)
+    local = d.to_local()
+    if local.numel() and x.numel() and local.untyped_storage().data_ptr() \
+            == x.untyped_storage().data_ptr():
+        d = DTensor.from_local(local.clone(), mesh, d.placements,
+                               run_check=False, shape=d.shape,
+                               stride=d.stride())
+    return d
+
+
+def meta_placed(shape, dtype: torch.dtype, mesh, placements: Sequence[Any]):
+    """A DTensor of ``shape`` at ``placements`` whose local shard is an
+    empty ``meta`` tensor (the dry run: nothing is allocated); on a rank
+    outside ``mesh`` the shard is empty, as DTensor keeps it."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset,
+    )
+
+    shape = torch.Size(shape)
+    local = compute_local_shape_and_global_offset(shape, mesh,
+                                                  list(placements))[0]
+    return DTensor.from_local(
+        torch.empty(local, dtype=dtype, device="meta"), mesh,
+        list(placements), run_check=False, shape=shape,
+        stride=torch.empty(shape, device="meta").stride())
 
 
 def at_placements(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:

@@ -159,7 +159,9 @@ def flash_attention(
     if an input requires grad while grad is enabled: the kernel has no
     backward (nor had the reference's). DTensor operands are gathered and
     the kernel (its plain version on the CPU) runs once on the whole
-    operands (see ``repro_torch.kernels``).
+    operands (see ``repro_torch.kernels``). On the ``meta`` device (the
+    dry run) it reports its work and returns an empty output of q's shape
+    and dtype; any other device but the CPU and the card raises.
     """
     global launches
     require_no_grad("flash_attention", q, k, v)
@@ -175,6 +177,10 @@ def flash_attention(
         with reported("flash_attention",
                       work(BH, Sq, Sk, hd, q.dtype, causal)):
             return attention_ref(q, k, v, causal=causal, q_start=q_start)
+    if q.device.type == "meta":          # a dry run: the work, no launch
+        with reported("flash_attention",
+                      work(BH, Sq, Sk, hd, q.dtype, causal)):
+            return torch.empty_like(q)
     _check_kernel_args(q, k, v, q_start)
     if BH == 0 or Sq == 0:
         return torch.empty_like(q)

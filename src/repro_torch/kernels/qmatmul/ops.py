@@ -183,7 +183,9 @@ def qlinear(
     an input requires grad while grad is enabled (the kernel has no
     backward). DTensor operands are gathered and the kernel (its plain
     version on the CPU) runs once on the whole operands (see
-    ``repro_torch.kernels``).
+    ``repro_torch.kernels``). On the ``meta`` device (the dry run) it
+    reports its work and returns an empty output of the right shape and
+    dtype; any other device but the CPU and the card raises.
     """
     require_no_grad("qmatmul", x, w, bias)
     mesh = dtensor_mesh("qmatmul", x, w, bias)
@@ -196,6 +198,10 @@ def qlinear(
         with reported("qmatmul", _work_of(x, w, bias, out_dtype)):
             return qlinear_ref(x, w, bias, shift=shift, relu=relu,
                                out_dtype=out_dtype, rounding=rounding)
+    if x.device.type == "meta":          # a dry run: the work, no launch
+        with reported("qmatmul", _work_of(x, w, bias, out_dtype)):
+            return torch.empty((x.shape[0], w.shape[1]),
+                               dtype=TORCH_DTYPES[out_dtype], device="meta")
     return qlinear_planned(x, w, bias, None, shift=shift, relu=relu,
                            out_dtype=out_dtype, rounding=rounding)
 

@@ -21,8 +21,17 @@ step once under a ``TorchDispatchMode`` and counts, per card:
                         returns, and an in-place indexed write
                         (``index_put_``, ``index_add_``, ``scatter_``...)
                         moves only the rows it updates.
-  * collective_bytes -- 0 on one card (the field is kept for the multi-GPU
-                        port)
+  * collective_bytes -- wire bytes per card of every functional collective
+                        (``_c10d_functional``) the step issues, with the
+                        reference's ring factors for a group of G ranks:
+                        all-gather result * (G-1)/G, reduce-scatter
+                        result * (G-1), all-reduce result * 2(G-1)/G,
+                        all-to-all result * (G-1)/G; 0 on one card
+
+On a mesh the step's DTensor ops are counted as each rank runs them: the
+mode lets DTensor desugar every op into its local ops and collectives
+(as ``CommDebugMode`` does), so the flops and bytes are one rank's, at
+its local shapes, and the collectives are the ones it joins.
 
 Bytes diverge from the reference's on purpose. The reference leaves
 elementwise ops out, because the TPU fuses them into their neighbours. On
@@ -152,6 +161,25 @@ def _conv_out_elems(x, w, args) -> int:
     return n
 
 
+# functional collectives: (wire factor of the result bytes for a group of
+# G ranks, the reference's name of the collective)
+_COLLECTIVES = {
+    "all_gather_into_tensor": (lambda g: (g - 1) / g, "all-gather"),
+    "reduce_scatter_tensor": (lambda g: g - 1, "reduce-scatter"),
+    "all_reduce": (lambda g: 2 * (g - 1) / g, "all-reduce"),
+    "all_to_all_single": (lambda g: (g - 1) / g, "all-to-all"),
+}
+
+
+def _group_size(args) -> int:
+    """The size of the process group a functional collective names (its
+    last string argument; an all-reduce's reduce op comes before it)."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    name = [a for a in args if isinstance(a, str)][-1]
+    return _resolve_process_group(name).size()
+
+
 class _Analysis(TorchDispatchMode):
     """The dispatch mode of :func:`analyze_step`; also the sink the kernel
     wrappers report to (``kernels.active_analysis``)."""
@@ -177,6 +205,10 @@ class _Analysis(TorchDispatchMode):
         st.kernel_launches[name] = st.kernel_launches.get(name, 0) + 1
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(_is_dtensor_type(t) for t in types):
+            # let DTensor run it: its local ops and collectives come back
+            # here, each at one rank's shapes
+            return NotImplemented
         kwargs = kwargs or {}
         # a composite op (matmul, einsum, reshape, to) reaches the mode
         # undecomposed where autograd does not run (no_grad, inference):
@@ -190,7 +222,26 @@ class _Analysis(TorchDispatchMode):
             self._count(func, args, kwargs, out)
         return out
 
+    def _collective(self, func, args, out) -> bool:
+        """Count a functional collective's wire bytes; False for any other
+        op."""
+        if func.namespace != "_c10d_functional":
+            return False
+        entry = _COLLECTIVES.get(func.overloadpacket.__name__)
+        if entry is not None:
+            factor, name = entry
+            wire = sum(_nbytes(o) for o in _tensors(out)) \
+                * factor(_group_size(args))
+            st = self.stats
+            st.collective_bytes += wire
+            st.per_collective[name] = st.per_collective.get(name, 0.0) \
+                + wire
+            st.collective_ops[name] = st.collective_ops.get(name, 0) + 1
+        return True                     # wait_tensor & co: no work
+
     def _count(self, func, args, kwargs, out) -> None:
+        if self._collective(func, args, out):
+            return
         packet = func.overloadpacket
         flops = _product_flops(packet, args)
         if flops:
@@ -235,6 +286,12 @@ class _Analysis(TorchDispatchMode):
             region = sum(t.numel() for t in indices) * dest.element_size()
         return (sum(_nbytes(t) for t in indices) + moved + region
                 + (region if reads_dest else 0))
+
+
+def _is_dtensor_type(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, type) and issubclass(t, DTensor)
 
 
 def analyze_step(fn: Callable[..., Any], *args: Any,

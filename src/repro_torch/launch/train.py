@@ -12,18 +12,25 @@ seq 32, batch 4.
         --steps 20 --device cpu --ckpt-dir "$(mktemp -d)"
     PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --debug \\
         --mode megatron --steps 2 --device cpu --ckpt-dir "$(mktemp -d)"
+    PYTHONPATH=src python -m torch.distributed.run --standalone \\
+        --nproc-per-node 8 -m repro_torch.launch.train --arch yi-6b --debug \\
+        --data 2 --model 4 --stages 2 --steps 2 --device cpu \\
+        --ckpt-dir "$(mktemp -d)"             # 8 gloo ranks, two stages
 
-The mesh flags are the reference's. Given any of them the model trains
-sharded: its parameters and optimizer state placed as DTensors on the
-plan's mesh, every step under the plan's sharding context. With
-``--debug`` the mesh is 1x1, as the reference's; without it the port
-runs on the 1x1 mesh too (one card; the plan CLI's divergence) unless
-``--multi-pod`` asks for the 2x16x16 production mesh, which exits with
-``RuntimeError: need 512 devices, have N`` before any model is
-allocated when the world is smaller. ``--stages S`` runs PlaceStages: on
-a mesh whose data axis cannot hold S stages it records the reference's
-fallback and trains one stage; a plan that does stage refuses to place
-its parameters (ROADMAP Queue 1 item 2, part 2c).
+The mesh flags are the reference's, plus the plan CLI's ``--data D
+--model M`` (a D x M debug mesh; the reference's train CLI has none).
+Given any of them the model trains sharded: its parameters and optimizer
+state placed as DTensors on the plan's mesh, every step under the plan's
+sharding context. With ``--debug`` the mesh is 1x1, as the reference's,
+unless ``--data``/``--model`` size it; without it the port runs on the
+1x1 mesh too (one card; the plan CLI's divergence) unless
+``--multi-pod`` asks for the 2x16x16 production mesh. A mesh larger than
+the world exits with ``RuntimeError: need N devices, have M`` before any
+model is allocated. Ranks started by ``torch.distributed.run`` join its
+group (``launch.mesh``). ``--stages S`` runs PlaceStages: on a mesh whose
+data axis cannot hold S stages it records the reference's fallback and
+trains one stage; on one that can, each data row holds only its band of
+the layer stack (``repro_torch.dist.staging``).
 
 The encoder-decoder's frames and the vision LM's patch embeddings (stub
 frontends, as in the reference) are drawn once from seed 0 and ride every
@@ -43,6 +50,7 @@ Flags:
   --multi-pod     the 2x16x16 production mesh (ignored under --debug, as
                   in the reference); trains sharded
   --stages        pipeline stages (the PlaceStages pass); trains sharded
+  --data, --model debug mesh extents (default 1 x 1); trains sharded
 """
 
 from __future__ import annotations
@@ -93,6 +101,10 @@ def main(argv=None):
     ap.add_argument("--stages", type=int, default=1,
                     help="pipeline stages (PlaceStages pass); trains "
                          "sharded")
+    ap.add_argument("--data", type=int, default=1,
+                    help="debug mesh data-axis extent; trains sharded")
+    ap.add_argument("--model", type=int, default=1,
+                    help="debug mesh model-axis extent; trains sharded")
     ap.add_argument("--steps", type=int, default=50,
                     help="training steps to run")
     ap.add_argument("--ckpt-dir", default=DEFAULT_CKPT_DIR,
@@ -109,14 +121,15 @@ def main(argv=None):
     # deterministic steps need it (no effect on the CPU)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
-    sharded = args.mode is not None or args.multi_pod or args.stages != 1
+    sharded = (args.mode is not None or args.multi_pod or args.stages != 1
+               or args.data * args.model > 1)
     if args.debug:
         shape = ShapeSpec("debug_train", 32, 4, "train")
-        mesh_spec = MeshSpec.debug(1, 1)
+        mesh_spec = MeshSpec.debug(args.data, args.model)
     else:
         shape = SHAPES[args.shape]
         mesh_spec = (MeshSpec.production(multi_pod=True) if args.multi_pod
-                     else MeshSpec.debug(1, 1))
+                     else MeshSpec.debug(args.data, args.model))
     plan = build_plan(args.arch, shape, mode=args.mode, mesh_spec=mesh_spec,
                       pipeline_stages=args.stages, debug=args.debug,
                       device=args.device)

@@ -17,7 +17,13 @@ from typing import Mapping, Optional, Union
 
 import torch
 
-from repro_torch.dist.sharding import is_dtensor, reshape, shard_act, whole
+from repro_torch.dist.sharding import (
+    is_dtensor,
+    local_einsum,
+    reshape,
+    shard_act,
+    whole,
+)
 from repro_torch.kernels.flash_attention.ops import accepts as flash_accepts
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.layers.linear import bmm_f32, linear
@@ -44,9 +50,10 @@ def _products(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     backward (the reference's ``preferred_element_type`` products: a bf16
     product is exact in fp32, so the two differ only in summation order)."""
     if not recorded:
-        return (torch.einsum("bqhd,bshd->bhqs", q.float(), k.float()),
-                lambda p: torch.einsum("bhqs,bshd->bqhd", p.float(),
-                                       v.float()))
+        einsum = (local_einsum if any(map(is_dtensor, (q, k, v)))
+                  else torch.einsum)
+        return (einsum("bqhd,bshd->bhqs", q.float(), k.float()),
+                lambda p: einsum("bhqs,bshd->bqhd", p.float(), v.float()))
     B, Sq, H, hd = q.shape
     Sk = k.shape[1]
     scores = bmm_f32(reshape(q.transpose(1, 2), B * H, Sq, hd),

@@ -97,6 +97,36 @@ SHAPES: Dict[str, ShapeSpec] = {
     "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
 }
 
+# long_500k needs sub-quadratic attention: only the SSM and hybrid families
+# run it (the reference's skip list)
+_LONG_OK_FAMILIES = ("ssm", "hybrid")
+
+InputSpecs = Dict[str, Tuple[Tuple[int, ...], torch.dtype]]
+
+
+def supports_shape(cfg: ArchConfig, shape: str) -> Tuple[bool, str]:
+    """``(ok, reason)``: whether ``cfg``'s family runs the SHAPES cell
+    ``shape``, with the reference's reason when it does not."""
+    if shape == "long_500k" and cfg.family not in _LONG_OK_FAMILIES:
+        return False, (
+            "pure full-attention architecture: 500k-token decode would need "
+            "sub-quadratic attention (skip noted in DESIGN.md)"
+        )
+    return True, ""
+
+
+def token_input_specs(batch: int, seq: int) -> InputSpecs:
+    """``tokens`` and ``labels`` [batch, seq] int32, as (shape, dtype)."""
+    return {"tokens": ((batch, seq), torch.int32),
+            "labels": ((batch, seq), torch.int32)}
+
+
+def decode_input_specs(batch: int) -> InputSpecs:
+    """One decode step's inputs: ``tokens`` [batch] and the scalar
+    ``pos``, int32."""
+    return {"tokens": ((batch,), torch.int32), "pos": ((), torch.int32)}
+
+
 # Decode LM-head shifts: rmsnorm'd activations (absmax < 4 -> x_shift 5),
 # fan-in-scaled head weights (absmax < 0.5 -> w_shift 8), int16 SRS out
 # with ~5e-4 logit resolution over +-16 (out_shift 11).
@@ -538,6 +568,15 @@ class PortedLM:
     def ffn_blocks(self):
         """The blocks whose SwiGLU FFN the quantized plan runs a16w8."""
         return []
+
+    def input_specs(self, shape: ShapeSpec) -> InputSpecs:
+        """The reference's ``input_specs``: the (shape, dtype) stand-ins of
+        a step's inputs at ``shape``. A train or prefill shape takes tokens
+        and labels [B, S]; a decode shape one token per sequence and its
+        position (the dense, MoE, RWKV and hybrid families)."""
+        if shape.kind in ("train", "prefill"):
+            return token_input_specs(shape.global_batch, shape.seq_len)
+        return decode_input_specs(shape.global_batch)
 
     def param_specs(self) -> Dict[str, ParamSpec]:
         """``{leaf key: ParamSpec}`` for every leaf of the reference's tree

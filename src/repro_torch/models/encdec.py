@@ -22,6 +22,7 @@ from torch import nn
 
 from repro_torch.core.emit import DeviceLike, resolve_device
 from repro_torch.dist.sharding import ParamSpec, serving, shard_act
+from repro_torch.dist.staging import layers, materialized
 from repro_torch.layers.attention import (
     cross_attention,
     decode_cross_attention,
@@ -38,9 +39,13 @@ from repro_torch.models.base import (
     CROSS_STATE_KEYS,
     PAGED_STATE_KEYS,
     ArchConfig,
+    InputSpecs,
     PageView,
     PortedLM,
+    ShapeSpec,
+    decode_input_specs,
     lm_loss_chunked,
+    token_input_specs,
 )
 from repro_torch.models.blocks import (
     attention_params,
@@ -116,20 +121,23 @@ class EncDecLM(PortedLM, nn.Module):
 
     def _enc_layer(self, x: torch.Tensor, blk: EncDecBlock,
                    positions: torch.Tensor) -> torch.Tensor:
-        x = x + self_attention(blk.attn, layernorm(blk.ln1, x), positions,
-                               causal=False, q_chunk=self.cfg.q_chunk,
-                               **self._heads())
-        return blk.layer_out(x)
+        with materialized(blk):
+            x = x + self_attention(blk.attn, layernorm(blk.ln1, x),
+                                   positions, causal=False,
+                                   q_chunk=self.cfg.q_chunk, **self._heads())
+            return blk.layer_out(x)
 
     def _dec_layer(self, x: torch.Tensor, blk: EncDecBlock,
                    positions: torch.Tensor,
                    memory: torch.Tensor) -> torch.Tensor:
         q_chunk = self.cfg.q_chunk
-        x = x + self_attention(blk.attn, layernorm(blk.ln1, x), positions,
-                               causal=True, q_chunk=q_chunk, **self._heads())
-        x = x + cross_attention(blk.xattn, layernorm(blk.ln_x, x), memory,
-                                q_chunk=q_chunk, **self._heads())
-        return blk.layer_out(x)
+        with materialized(blk):
+            x = x + self_attention(blk.attn, layernorm(blk.ln1, x),
+                                   positions, causal=True, q_chunk=q_chunk,
+                                   **self._heads())
+            x = x + cross_attention(blk.xattn, layernorm(blk.ln_x, x),
+                                    memory, q_chunk=q_chunk, **self._heads())
+            return blk.layer_out(x)
 
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
         """The memory [B, S, d] of frame embeddings [B, S, d]; each layer
@@ -222,6 +230,18 @@ class EncDecLM(PortedLM, nn.Module):
                                   dtype=torch.bfloat16, device=self.device)
                 for name, s in shapes.items()}
 
+    def input_specs(self, shape: ShapeSpec) -> InputSpecs:
+        """The reference's ``input_specs``: frame embeddings [B, S, d] and
+        a decoder run of ``max(S // dec_ratio, 128)`` tokens and labels for
+        a train or prefill shape; one token and its position to decode."""
+        B = shape.global_batch
+        if shape.kind in ("train", "prefill"):
+            dec_len = max(shape.seq_len // self.cfg.dec_ratio, 128)
+            return {"frames": ((B, shape.seq_len, self.cfg.d_model),
+                               torch.bfloat16),
+                    **token_input_specs(B, dec_len)}
+        return decode_input_specs(B)
+
     @serving
     def decode_step(self, state: Dict[str, torch.Tensor],
                     tokens: torch.Tensor, pos: int, *,
@@ -237,20 +257,22 @@ class EncDecLM(PortedLM, nn.Module):
         x = embed(self.embed, tokens[:, None])
         cfg = self.cfg
         for i, blk in enumerate(self.dec_blocks):
-            h = layernorm(blk.ln1, x)
-            ck, cv = state["cache_k"][i], state["cache_v"][i]
-            if pages is not None:
-                h, _, _ = paged_decode_self_attention(
-                    blk.attn, h, ck, cv, pages, **self._heads())
-            else:
-                h, _, _ = decode_self_attention(
-                    blk.attn, h, ck, cv, pos, window_start=window_start,
-                    **self._heads())
-            x = x + h
-            x = x + decode_cross_attention(
-                blk.xattn, layernorm(blk.ln_x, x), state["cross_k"][i],
-                state["cross_v"][i], n_heads=cfg.n_heads,
-                head_dim=cfg.head_dim)
-            x = blk.mlp_part(x)
+            with layers(i, state["cache_k"], state["cache_v"],
+                        batch=pages is None) as (ck, cv), \
+                    layers(i, state["cross_k"], state["cross_v"]) as (
+                        xk, xv), materialized(blk):
+                h = layernorm(blk.ln1, x)
+                if pages is not None:
+                    h, _, _ = paged_decode_self_attention(
+                        blk.attn, h, ck, cv, pages, **self._heads())
+                else:
+                    h, _, _ = decode_self_attention(
+                        blk.attn, h, ck, cv, pos, window_start=window_start,
+                        **self._heads())
+                x = x + h
+                x = x + decode_cross_attention(
+                    blk.xattn, layernorm(blk.ln_x, x), xk, xv,
+                    n_heads=cfg.n_heads, head_dim=cfg.head_dim)
+                x = blk.mlp_part(x)
         x = layernorm(self.ln_f, x)
         return matmul_f32(x, self.head["w"])[:, 0], state

@@ -23,6 +23,7 @@ from torch import nn
 
 from repro_torch.core.emit import DeviceLike, resolve_device
 from repro_torch.dist.sharding import ParamSpec, serving, shard_act
+from repro_torch.dist.staging import layers, materialized
 from repro_torch.layers.embedding import embed
 from repro_torch.layers.linear import matmul_f32
 from repro_torch.layers.norm import rmsnorm
@@ -133,11 +134,12 @@ class HybridModel(PortedLM, nn.Module):
                positions: torch.Tensor) -> torch.Tensor:
         """One group's Mamba2 layers, then the shared attention block."""
         cfg = self.cfg
-        for layer in group:
-            x = x + mamba2(layer.mamba, rmsnorm(layer.ln, x),
-                           head_dim=cfg.ssm_head_dim,
-                           d_state=cfg.ssm_state, chunk=cfg.ssd_chunk)
-            x = shard_act(x, "batch", "seq", "act_embed")
+        with materialized(group):
+            for layer in group:
+                x = x + mamba2(layer.mamba, rmsnorm(layer.ln, x),
+                               head_dim=cfg.ssm_head_dim,
+                               d_state=cfg.ssm_state, chunk=cfg.ssd_chunk)
+                x = shard_act(x, "batch", "seq", "act_embed")
         x, _ = self.shared_attn(x, positions, cfg)
         return x
 
@@ -247,13 +249,17 @@ class HybridModel(PortedLM, nn.Module):
         for g, group in enumerate(self.mamba_blocks):
             for e, layer in enumerate(group):
                 i = g * cfg.attn_every + e
-                o, s, c = mamba2_decode(layer.mamba, rmsnorm(layer.ln, x),
-                                        ssm[i], conv[i],
-                                        head_dim=cfg.ssm_head_dim)
-                ssm[i].copy_(s)
-                conv[i].copy_(c)
+                with layers(i, ssm, conv) as (ssm_i, conv_i), \
+                        materialized(layer):
+                    o, s, c = mamba2_decode(
+                        layer.mamba, rmsnorm(layer.ln, x), ssm_i, conv_i,
+                        head_dim=cfg.ssm_head_dim)
+                    ssm_i.copy_(s)
+                    conv_i.copy_(c)
                 x = x + o
-            x, _, _ = self.shared_attn.decode(
-                x, state["cache_k"][g], state["cache_v"][g], pos, cfg,
-                window_start=window_start, pages=pages)
+            with layers(g, state["cache_k"], state["cache_v"],
+                        batch=pages is None) as (ck, cv):
+                x, _, _ = self.shared_attn.decode(
+                    x, ck, cv, pos, cfg, window_start=window_start,
+                    pages=pages)
         return self.head_logits(rmsnorm(self.ln_f, x)), state

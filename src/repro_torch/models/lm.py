@@ -14,6 +14,7 @@ from torch import nn
 
 from repro_torch.core.emit import DeviceLike, resolve_device
 from repro_torch.dist.sharding import ParamSpec, serving, shard_act
+from repro_torch.dist.staging import layers, materialized, run_block
 from repro_torch.layers.embedding import embed
 from repro_torch.layers.linear import matmul_f32
 from repro_torch.layers.norm import rmsnorm
@@ -72,7 +73,8 @@ class DecoderLM(PortedLM, nn.Module):
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for blk in self.blocks:
-            x, a = remat(blk, x, positions, self.cfg, enabled=self.cfg.remat)
+            x, a = remat(run_block, blk, x, positions, self.cfg,
+                         enabled=self.cfg.remat)
             if a is not None:
                 aux = aux + a
         return rmsnorm(self.ln_f, x), aux
@@ -153,9 +155,10 @@ class DecoderLM(PortedLM, nn.Module):
         cfg = self.cfg
         x = embed(self.embed, tokens[:, None])
         for i, blk in enumerate(self.blocks):
-            x, _, _ = blk.decode(x, state["cache_k"][i], state["cache_v"][i],
-                                 pos, cfg, window_start=window_start,
-                                 pages=pages)
+            with layers(i, state["cache_k"], state["cache_v"],
+                        batch=pages is None) as (ck, cv), materialized(blk):
+                x, _, _ = blk.decode(x, ck, cv, pos, cfg,
+                                     window_start=window_start, pages=pages)
         return self.head_logits(rmsnorm(self.ln_f, x)), state
 
     @serving
@@ -186,6 +189,8 @@ class DecoderLM(PortedLM, nn.Module):
                              f"the block runs {n}")
         x = embed(self.embed, tokens)
         for i, blk in enumerate(self.blocks[:n]):
-            x, _, _ = blk.decode(x, state["cache_k"][i], state["cache_v"][i],
-                                 None, cfg, pages=pages, local=local)
+            with layers(i, state["cache_k"], state["cache_v"],
+                        batch=pages is None) as (ck, cv), materialized(blk):
+                x, _, _ = blk.decode(x, ck, cv, None, cfg, pages=pages,
+                                     local=local)
         return self.head_logits(rmsnorm(self.ln_f, x), block=True), state

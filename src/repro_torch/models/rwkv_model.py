@@ -19,6 +19,7 @@ from torch import nn
 
 from repro_torch.core.emit import DeviceLike, resolve_device
 from repro_torch.dist.sharding import ParamSpec, serving, shard_act
+from repro_torch.dist.staging import layers, materialized
 from repro_torch.layers.embedding import embed
 from repro_torch.layers.linear import matmul_f32
 from repro_torch.layers.norm import layernorm
@@ -114,9 +115,10 @@ class RWKVModel(PortedLM, nn.Module):
     # -- prefill --------------------------------------------------------------
 
     def _layer(self, x: torch.Tensor, layer: nn.Module) -> torch.Tensor:
-        x = x + rwkv6_time_mix(layer.mix, layernorm(layer.ln1, x),
-                               head_dim=self.head_dim)
-        x = x + rwkv6_channel_mix(layer.mix, layernorm(layer.ln2, x))
+        with materialized(layer):
+            x = x + rwkv6_time_mix(layer.mix, layernorm(layer.ln1, x),
+                                   head_dim=self.head_dim)
+            x = x + rwkv6_channel_mix(layer.mix, layernorm(layer.ln2, x))
         return shard_act(x, "batch", "seq", "act_embed")
 
     def backbone(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -200,15 +202,18 @@ class RWKVModel(PortedLM, nn.Module):
         tm, cm, wkv = state["tm_prev"], state["cm_prev"], state["wkv"]
         x = layernorm(self.ln0, embed(self.embed, tokens[:, None]))
         for i, layer in enumerate(self.blocks):
-            o, tm_new, s = rwkv6_time_mix(
-                layer.mix, layernorm(layer.ln1, x), head_dim=self.head_dim,
-                tm_prev=tm[i], wkv_state=wkv[i], return_state=True)
-            x = x + o
-            o, cm_new = rwkv6_channel_mix(
-                layer.mix, layernorm(layer.ln2, x), cm_prev=cm[i],
-                return_state=True)
-            x = x + o
-            tm[i].copy_(tm_new)         # rounded to the state's dtype
-            cm[i].copy_(cm_new)
-            wkv[i].copy_(s)
+            with layers(i, tm, cm, wkv) as (tm_i, cm_i, wkv_i), \
+                    materialized(layer):
+                o, tm_new, s = rwkv6_time_mix(
+                    layer.mix, layernorm(layer.ln1, x),
+                    head_dim=self.head_dim, tm_prev=tm_i, wkv_state=wkv_i,
+                    return_state=True)
+                x = x + o
+                o, cm_new = rwkv6_channel_mix(
+                    layer.mix, layernorm(layer.ln2, x), cm_prev=cm_i,
+                    return_state=True)
+                x = x + o
+                tm_i.copy_(tm_new)      # rounded to the state's dtype
+                cm_i.copy_(cm_new)
+                wkv_i.copy_(s)
         return self.head_logits(layernorm(self.ln_f, x)), state

@@ -26,6 +26,7 @@ from torch import nn
 
 from repro_torch.core.emit import DeviceLike, resolve_device
 from repro_torch.dist.sharding import ParamSpec, reshape, serving, shard_act
+from repro_torch.dist.staging import layers, materialized
 from repro_torch.layers.embedding import embed
 from repro_torch.layers.linear import linear, matmul_f32
 from repro_torch.layers.norm import rmsnorm
@@ -34,9 +35,13 @@ from repro_torch.models.base import (
     CROSS_STATE_KEYS,
     PAGED_STATE_KEYS,
     ArchConfig,
+    InputSpecs,
     PageView,
     PortedLM,
+    ShapeSpec,
+    decode_input_specs,
     lm_loss_chunked,
+    token_input_specs,
 )
 from repro_torch.models.blocks import AttnBlock, CrossBlock, norm_params
 
@@ -110,9 +115,10 @@ class VisionLM(PortedLM, nn.Module):
     def _superblock(self, x: torch.Tensor, group: nn.ModuleList,
                     cross: CrossBlock, positions: torch.Tensor,
                     vision: torch.Tensor) -> torch.Tensor:
-        for blk in group:
-            x, _ = blk(x, positions, self.cfg)
-        return cross(x, vision, self.cfg)
+        with materialized(group), materialized(cross):
+            for blk in group:
+                x, _ = blk(x, positions, self.cfg)
+            return cross(x, vision, self.cfg)
 
     @serving
     def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -190,13 +196,26 @@ class VisionLM(PortedLM, nn.Module):
         cfg = self.cfg
         B, M, _ = vision.shape
 
+        def one(blk, w):
+            with materialized(blk):
+                return reshape(linear(blk.xattn[w], vision), B, M, cfg.n_kv,
+                               cfg.head_dim)
+
         def project(w):
-            return torch.stack([
-                reshape(linear(blk.xattn[w], vision), B, M, cfg.n_kv,
-                        cfg.head_dim)
-                for blk in self.cross_blocks])
+            return torch.stack([one(blk, w) for blk in self.cross_blocks])
 
         return project("wk"), project("wv")
+
+    def input_specs(self, shape: ShapeSpec) -> InputSpecs:
+        """The reference's ``input_specs``: tokens and labels [B, S] and the
+        patch embeddings [B, n_image_tokens, d] for a train or prefill
+        shape; one token and its position to decode."""
+        B = shape.global_batch
+        if shape.kind in ("train", "prefill"):
+            return {**token_input_specs(B, shape.seq_len),
+                    "vision": ((B, self.cfg.n_image_tokens,
+                                self.cfg.d_model), torch.bfloat16)}
+        return decode_input_specs(B)
 
     @serving
     def decode_step(self, state: Dict[str, torch.Tensor],
@@ -215,10 +234,14 @@ class VisionLM(PortedLM, nn.Module):
                                                self.cross_blocks)):
             for e, blk in enumerate(group):
                 i = s * self.self_per_block + e
-                x, _, _ = blk.decode(
-                    x, state["cache_k"][i], state["cache_v"][i], pos, cfg,
-                    window_start=window_start, pages=pages)
-            x = cross.decode(x, state["cross_k"][s], state["cross_v"][s],
-                             cfg)
+                with layers(i, state["cache_k"], state["cache_v"],
+                            batch=pages is None) as (ck, cv), \
+                        materialized(blk):
+                    x, _, _ = blk.decode(x, ck, cv, pos, cfg,
+                                         window_start=window_start,
+                                         pages=pages)
+            with layers(s, state["cross_k"], state["cross_v"]) as (
+                    xk, xv), materialized(cross):
+                x = cross.decode(x, xk, xv, cfg)
         x = rmsnorm(self.ln_f, x)
         return matmul_f32(x, self.head["w"])[:, 0], state

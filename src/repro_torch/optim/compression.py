@@ -23,11 +23,6 @@ from typing import Optional, Tuple
 
 import torch
 
-MULTI_GPU_ITEM = ("ROADMAP Queue 1 item 2, multi-GPU part 2c (the staged "
-                  "placement: which members of a staged leaf go to which "
-                  "row band)")
-
-
 def compress_int8(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-tensor symmetric int8 quantization. Returns ``(q, scale)``, the
     scale an fp32 scalar tensor."""

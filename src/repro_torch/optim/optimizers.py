@@ -42,12 +42,8 @@ from typing import Any, Callable, Dict, Mapping, Sequence, Tuple
 
 import torch
 
-from repro_torch.dist.sharding import (
-    ParamSpec,
-    is_dtensor,
-    leaf_placements,
-    mesh_all_reduce,
-)
+from repro_torch.dist.sharding import ParamSpec, is_dtensor, mesh_all_reduce
+from repro_torch.dist.staging import owned, stacked_placements, stage_band
 
 Params = Mapping[str, torch.Tensor]
 STEP_SPEC = ParamSpec((), (), torch.int32, "zeros")
@@ -80,8 +76,10 @@ def group_shape(group, params: Params) -> Tuple[int, ...]:
 
 def stacked(tensors: Params, group) -> torch.Tensor:
     """The group's members as one new fp32 tensor of the leaf's shape. Of
-    DTensor members (all at one placement) a DTensor: their local shards
-    stacked, at the leaf's placements (:func:`leaf_placements`)."""
+    DTensor members (all at one placement) a DTensor: the local shards of
+    the members this rank holds (:func:`owned`: all of them, or a staged
+    leaf's band) stacked, at the leaf's placements
+    (:func:`stacked_placements`)."""
     first = tensors[group.members[0]]
     if is_dtensor(first):
         from torch.distributed.tensor import DTensor
@@ -89,13 +87,14 @@ def stacked(tensors: Params, group) -> torch.Tensor:
         if any(tuple(tensors[n].placements) != tuple(first.placements)
                for n in group.members):
             raise ValueError(f"{group.name}: members at mixed placements")
+        mesh, placements = stacked_placements(first, tuple(group.stack))
         shape = torch.Size(tuple(group.stack) + tuple(first.shape))
+        mine = owned(group.members, tensors)
+        local = torch.stack([tensors[n].to_local().float() for n in mine])
+        local = local.view(*_local_stack(group, mesh, placements, len(mine)),
+                           *local.shape[1:])
         return DTensor.from_local(
-            stacked({n: tensors[n].to_local() for n in group.members},
-                    group),
-            first.device_mesh, leaf_placements(first.placements,
-                                               len(group.stack)),
-            run_check=False, shape=shape,
+            local, mesh, placements, run_check=False, shape=shape,
             stride=torch.empty(shape, device="meta").stride())
     out = torch.empty(tuple(group.stack) + tuple(first.shape),
                       dtype=torch.float32, device=first.device)
@@ -105,9 +104,23 @@ def stacked(tensors: Params, group) -> torch.Tensor:
     return out
 
 
+def _local_stack(group, mesh, placements, n: int) -> Tuple[int, ...]:
+    """This rank's stacked dims of a leaf at ``placements`` on ``mesh``
+    (``n`` members in all)."""
+    stack = list(group.stack)
+    for i, p in enumerate(placements):
+        if p.is_shard() and p.dim < len(stack):
+            stack[p.dim] //= mesh.size(i)
+    if math.prod(stack) != n:
+        raise ValueError(f"{group.name}: {n} members held, the shard's "
+                         f"stack is {stack}")
+    return tuple(stack)
+
+
 def member_rows(t: torch.Tensor, group) -> torch.Tensor:
     """A view of a leaf-shaped tensor with one row per member (of a
-    DTensor leaf: of its local shard, each row a member's shard)."""
+    DTensor leaf: of its local shard, each row the shard of a member this
+    rank holds, in the order :func:`owned` lists them)."""
     t = local(t)
     return t.view(-1, *t.shape[len(group.stack):])
 
@@ -117,11 +130,16 @@ def global_norm(grads: Params) -> torch.Tensor:
 
     DTensor gradients (at Shard/Replicate placements) add their local
     shards' sums, each divided by the number of ranks that hold the same
-    shard, and the total is all-reduced over the mesh: one full
-    reduction, the same plain scalar on every rank. On a mesh of one
-    device that is the unsharded sum, bit for bit."""
-    mesh = next((g.device_mesh for g in grads.values() if is_dtensor(g)),
-                None)
+    shard (a staged member's: the ranks of its band), and the total is
+    all-reduced over the whole mesh: one full reduction, the same plain
+    scalar on every rank. On a mesh of one device that is the unsharded
+    sum, bit for bit."""
+    mesh = None
+    for g in grads.values():
+        if is_dtensor(g):
+            b = stage_band(g)
+            mesh = b.mesh if b is not None else g.device_mesh
+            break
     sums = []
     for g in grads.values():
         s = torch.sum(torch.square(local(g).float()))
@@ -132,7 +150,7 @@ def global_norm(grads: Params) -> torch.Tensor:
                 raise ValueError("global_norm of a Partial gradient: "
                                  "redistribute it to its parameter first")
             else:
-                holders = math.prod(mesh.size(i) for i, p in
+                holders = math.prod(g.device_mesh.size(i) for i, p in
                                     enumerate(g.placements)
                                     if not p.is_shard())
             if holders > 1:
@@ -200,7 +218,7 @@ def adamw(
         for grp in groups:
             ms = member_rows(state["m"][grp.name], grp)
             vs = member_rows(state["v"][grp.name], grp)
-            for i, name in enumerate(grp.members):
+            for i, name in enumerate(owned(grp.members, params)):
                 g = local(grads[name]).float() * scale
                 m, v, p = ms[i], vs[i], local(params[name])
                 if not m.shape == g.shape == p.shape:
@@ -280,10 +298,11 @@ def adafactor(
             u.mul_(-lr)
             first = params[grp.members[0]]
             if is_dtensor(u):
-                u = u.redistribute(u.device_mesh, leaf_placements(
-                    first.placements, len(grp.stack)))
+                mesh, placements = stacked_placements(first,
+                                                      tuple(grp.stack))
+                u = u.redistribute(mesh, placements)
             rows = member_rows(u, grp)
-            for i, name in enumerate(grp.members):
+            for i, name in enumerate(owned(grp.members, params)):
                 p = local(params[name])
                 p.copy_(p.float() + rows[i])
         return gnorm

@@ -21,12 +21,21 @@ without: the port runs on one card), ``--multi-pod`` the 2x16x16
 production mesh. A mesh larger than the world exits non-zero with
 ``RuntimeError: need N devices, have M`` before any model is allocated.
 ``--stages S`` runs the PlaceStages pass; on a mesh whose data axis
-cannot hold S stages it records the reference's fallback.
+cannot hold S stages it records the reference's fallback. On a mesh of
+several ranks the warm check places the parameters there (each data row
+holding only its band of a staged layer stack) and serves under the
+plan's sharding context; ranks started by ``torch.distributed.run`` join
+its group. The reference's staged CI run, on 8 gloo ranks:
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone \\
+        --nproc-per-node 8 -m repro_torch.plan --arch yi-6b --debug \\
+        --data 2 --model 4 --stages 2 --warm --device cpu
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 
@@ -48,7 +57,8 @@ def warm_check(plan) -> bool:
             batcher.submit(DecodeRequest(
                 f"w{wave}r{i}", [1 + (i + j) % 7 for j in range(2)],
                 max_new_tokens=4))
-        batcher.run()
+        with plan.activate() if plan.sharded else contextlib.nullcontext():
+            batcher.run()
         if wave == 0:
             warm = dict(plan.cache.stats())
     after = plan.cache.stats()

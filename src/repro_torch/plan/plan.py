@@ -36,8 +36,9 @@ and trains sharded, the optimizer state placed by its ``state_specs``:
     Trainer(model_loss, plan.optimizer, cfg, mesh=plan.mesh,
             rules=plan.rules).fit(model, opt_state, stream)
 
-A staged plan (``pipeline_stages`` > 1 with ``layers -> data``) cannot
-be placed yet (ROADMAP Queue 1 item 2, part 2c).
+A staged plan (``pipeline_stages`` > 1 with ``layers -> data``) places
+each member of a stacked leaf on the data row that owns it and gathers a
+block's members only while the block runs (``repro_torch.dist.staging``).
 """
 
 from __future__ import annotations
@@ -72,7 +73,6 @@ from repro_torch.models.base import (
     port_layout,
     state_specs,
 )
-from repro_torch.optim.compression import MULTI_GPU_ITEM
 from repro_torch.plan.ir import MeshSpec, PlanIR
 from repro_torch.plan.passes import (
     PLAN_PIPELINE,
@@ -172,15 +172,15 @@ class ExecutionPlan:
     def iter_shard_params(self, model=None):
         """Yield ``(parameter name, DTensor)`` for every parameter of
         ``model`` (default: the plan's), one at a time, each placed on
-        :attr:`mesh` by ``distribute_tensor``. A member of a stacked leaf
-        takes the leaf's placements with the stacked dims dropped; a leaf
-        whose stacked dim is sharded (``layers -> data`` after
-        PlaceStages) raises ``NotImplementedError``: which member goes to
-        which row band is not ported yet."""
+        :attr:`mesh` from its whole value on every rank (no data moves). A
+        member of a stacked leaf takes the leaf's placements with the
+        stacked dims dropped; a member of a staged leaf (``layers -> data``
+        after PlaceStages) lives on its band, the data row that owns it,
+        and takes no memory on any other rank (``dist.staging``)."""
         from torch.distributed.device_mesh import DeviceMesh
-        from torch.distributed.tensor import Shard, distribute_tensor
 
         from repro_torch.bridge import leaf_groups
+        from repro_torch.dist.staging import place_member
         from repro_torch.models.base import leaf_key
 
         model = self.model if model is None else model
@@ -188,29 +188,16 @@ class ExecutionPlan:
         if not isinstance(mesh, DeviceMesh):
             raise TypeError(f"shard_params needs a torch DeviceMesh, the "
                             f"plan's mesh is {type(mesh).__name__}")
-        if model.device.type != mesh.device_type:
+        if model.device.type not in (mesh.device_type, "meta"):
             raise ValueError(f"model on {model.device}, mesh on "
                              f"{mesh.device_type}")
         placements = self.param_placements()
-        members = []           # every group's member placements, checked
-        for grp in leaf_groups(model):   # before the first is placed
-            nstack = len(grp.stack)
-            member = []
-            for p in placements[leaf_key(grp.name)]:
-                if isinstance(p, Shard):
-                    if p.dim < nstack:
-                        raise NotImplementedError(
-                            f"{grp.name}: its stacked dim is sharded "
-                            f"({self.ir.stage_axis}); placing the members "
-                            f"of a staged leaf is {MULTI_GPU_ITEM}")
-                    p = Shard(p.dim - nstack)
-                member.append(p)
-            members.append((grp.members, member))
         params = dict(model.named_parameters())
-        for names, member in members:
-            for name in names:
-                yield name, distribute_tensor(params.pop(name).detach(),
-                                              mesh, member)
+        for grp in leaf_groups(model):
+            leaf = placements[leaf_key(grp.name)]
+            for index, name in enumerate(grp.members):
+                yield name, place_member(params.pop(name).detach(), mesh,
+                                         leaf, grp.stack, index)
 
     def shard_params(self, model=None) -> Dict[str, Any]:
         """``{parameter name: DTensor}``: :meth:`iter_shard_params` at once."""
@@ -226,11 +213,14 @@ class ExecutionPlan:
         :meth:`activate`. Returns the model."""
         from torch import nn
 
+        from repro_torch.dist.staging import mark_staged
+
         model = self.model if model is None else model
         for name, dt in self.iter_shard_params(model):
             parent, leaf = name.rsplit(".", 1)
             setattr(model.get_submodule(parent), leaf,
                     nn.Parameter(dt, requires_grad=False))
+        mark_staged(model)
         model.reset_quantized()
         self.sharded = True
         return model
@@ -241,12 +231,15 @@ class ExecutionPlan:
         (gathered, one parameter at a time). Returns the model."""
         from torch import nn
 
+        from repro_torch.dist.staging import mark_staged
+
         model = self.model if model is None else model
         for name, p in list(model.named_parameters()):
             parent, leaf = name.rsplit(".", 1)
             setattr(model.get_submodule(parent), leaf,
                     nn.Parameter(local_value(p.detach()),
                                  requires_grad=False))
+        mark_staged(model)
         model.reset_quantized()
         self.sharded = False
         return model
@@ -303,11 +296,13 @@ class ExecutionPlan:
         """The optimizer's initial state for a sharded model, each leaf a
         DTensor at the placements of its spec (:meth:`opt_state_specs`).
         Both optimizers start every leaf at zero, so each rank allocates
-        only its shard; the structure is checked against the optimizer's
-        own ``init`` (run on the meta device)."""
+        only its shard (none on a ``meta`` model: the dry run); the
+        structure is checked against the optimizer's own ``init`` (run on
+        the meta device)."""
         from torch.distributed.tensor import zeros as dtensor_zeros
 
         from repro_torch.bridge import leaf_groups
+        from repro_torch.dist.sharding import meta_placed
 
         model = self.model if model is None else model
         specs = self.opt_state_specs(model)
@@ -323,9 +318,13 @@ class ExecutionPlan:
                         or spec.init != "zeros":
                     raise ValueError(f"{path}: state {tuple(like.shape)} "
                                      f"{like.dtype} != spec {spec}")
+                placements = self.spec_placements(spec)
+                if model.device.type == "meta":
+                    return meta_placed(spec.shape, spec.dtype, mesh,
+                                       placements)
                 return dtensor_zeros(
                     spec.shape, dtype=spec.dtype, device_mesh=mesh,
-                    placements=self.spec_placements(spec))
+                    placements=placements)
             if set(spec) != set(like):
                 raise KeyError(f"{path}: state keys {sorted(like)} != "
                                f"specs {sorted(spec)}")
@@ -420,7 +419,7 @@ class ExecutionPlan:
         """``{key: DTensor}``: each leaf of ``state`` placed on the mesh by
         the PartitionSpec of its spec in ``specs`` (``models.base``'s
         reference-layout specs, laid out as the port's leaf)."""
-        from torch.distributed.tensor import distribute_tensor
+        from repro_torch.dist.sharding import place
 
         if set(specs) != set(state):
             raise KeyError(f"state leaves {sorted(state)} != specs "
@@ -429,7 +428,7 @@ class ExecutionPlan:
         out = {}
         for name, leaf in state.items():
             spec = port_layout(specs[name], tuple(leaf.shape))
-            out[name] = distribute_tensor(
+            out[name] = place(
                 leaf, mesh,
                 pspec_to_placements(spec_to_pspec(spec, mesh, self.rules),
                                     mesh))

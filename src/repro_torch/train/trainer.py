@@ -54,13 +54,13 @@ from repro_torch.bridge import (
 from repro_torch.dist.sharding import (
     at_placements,
     is_dtensor,
-    leaf_placements,
     local_value,
     place,
     rules_for_mode,
     shard_act,
     sharded,
 )
+from repro_torch.dist.staging import owned, stacked_placements
 from repro_torch.optim.compression import error_feedback_reduce
 from repro_torch.optim.optimizers import (
     Optimizer,
@@ -172,8 +172,7 @@ def init_residuals(model, groups, compress: bool) -> Dict[str, torch.Tensor]:
                             dtype=torch.float32, device=dev)
         first = params[g.members[0]]
         if compress and is_dtensor(first):    # at the leaf's placements
-            zeros = place(zeros, first.device_mesh,
-                          leaf_placements(first.placements, len(g.stack)))
+            zeros = place(zeros, *stacked_placements(first, tuple(g.stack)))
         out[g.name] = zeros
     return out
 
@@ -189,7 +188,7 @@ def compress_with_feedback(grads: Dict[str, torch.Tensor], residuals,
         reduced, residuals[grp.name] = error_feedback_reduce(
             g, residuals[grp.name])
         rows = member_rows(at_placements(reduced, g), grp)
-        for i, name in enumerate(grp.members):
+        for i, name in enumerate(owned(grp.members, grads)):
             grads[name] = _as_member(rows[i], grads[name])
 
 

@@ -23,7 +23,8 @@ reference's weights from ``WEIGHTS_DIR/<name>.npz`` (fp32, flat keys, as
   gradient of the reference's first leaf; the reduced phi3.5-moe
   (``vocab=64``) under megatron: the loss and one ``decode_step`` over a
   placed state at position 3 (``tests/test_distributed.py``'s two model
-  tests); a two-stage plan's refusal.
+  tests); a two-stage plan's placement (each rank's parameter bytes and
+  its share under the plan's PartitionSpecs).
 * ``family``: every family's reduced config, cut to one block of its
   kind, in fp32 under megatron, the decode state cast to fp32 too:
   ``forward``, and four ``decode_step``s dense and paged over a placed
@@ -230,29 +231,61 @@ def model_rank(rank, init_file, out_dir, weights_dir):
                 float((grads[n] - ref_grads[n]).abs().max())
                 for n in first.members))
         out[name] = rec
-    out["staged"] = staged_refusal()
+    out["staged"] = staged_placement()
     if rank == 0:
         _write(out_dir, "model", out)
 
 
-def staged_refusal():
-    """A two-stage plan (``layers -> data`` on the 2x4 mesh) refuses to
-    place its model: which member of a staged leaf goes to which row band
-    is part 2c. Returns the error and whether every parameter stayed
-    plain."""
+def pspec_share(plan) -> int:
+    """The bytes of one rank's share of every parameter leaf under the
+    plan's PartitionSpecs (an even split on every named mesh axis)."""
+    import math
+
+    import torch
+
+    from repro_torch.dist.sharding import PartitionSpec
+
+    sizes = dict(plan.ir.axes)
+    total = 0
+    for key, spec in plan.param_specs().items():
+        n = math.prod(spec.shape)
+        for entry in PartitionSpec.from_str(plan.ir.param_pspecs[key]):
+            for ax in ((entry,) if isinstance(entry, str) else entry or ()):
+                n //= sizes[ax]
+        total += n * torch.empty((), dtype=spec.dtype).element_size()
+    return total
+
+
+def staged_placement():
+    """A two-stage plan (``layers -> data`` on the 2x4 mesh) places its
+    model: every rank's parameter bytes against its share under the
+    plan's PartitionSpecs, the staged members this rank holds nothing of,
+    and the one-stage plan's bytes beside them; gathered from every
+    rank."""
+    import torch.distributed as dist
+
     from repro_torch.configs import reduced_config
+    from repro_torch.dist.staging import param_bytes, stage_band
     from repro_torch.plan import MeshSpec, build_plan
 
-    plan = build_plan(reduced_config(YI).with_(**YI_MODEL), mode="megatron",
-                      mesh_spec=MeshSpec.debug(*MESH), pipeline_stages=2,
-                      device="cpu")
-    try:
-        plan.init_params(0)
-    except NotImplementedError as exc:
-        return {"error": str(exc), "plain": all(
-            type(p).__name__ != "DTensor"
-            for p in plan.model.parameters()), "sharded": plan.sharded}
-    return {"error": None}
+    rec = {}
+    for stages in (1, 2):
+        plan = build_plan(reduced_config(YI).with_(**YI_MODEL),
+                          mode="megatron", mesh_spec=MeshSpec.debug(*MESH),
+                          pipeline_stages=stages, device="cpu")
+        model = plan.init_params(0)
+        params = list(model.parameters())
+        rec[f"bytes_{stages}"] = sum(param_bytes(p) for p in params)
+        rec[f"share_{stages}"] = pspec_share(plan)
+        if stages == 2:
+            staged = [p for p in params if stage_band(p) is not None]
+            rec.update(sharded=plan.sharded, dtensor=all(
+                type(p).__name__ == "DTensor" for p in params),
+                staged=len(staged),
+                empty=sum(param_bytes(p) == 0 for p in staged))
+    ranks = [None] * WORLD
+    dist.all_gather_object(ranks, rec)
+    return ranks
 
 
 def draw_zero_leaves(model, seed):

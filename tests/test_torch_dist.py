@@ -239,17 +239,30 @@ def test_plan_defaults_to_one_by_one_debug_mesh():
 # ---------------------------------------------------------------------------
 
 
-def test_dtensor_layout_equals_jax_on_8_ranks(tmp_path):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=8",
-               OMP_NUM_THREADS="1")
-    jax_out = tmp_path / "jax.json"
-    subprocess.run([sys.executable, str(LAYOUT), "jax", str(jax_out)],
-                   env=env, check=True, timeout=SUBPROCESS_TIMEOUT_S)
+def _layout_env():
+    return dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+                XLA_FLAGS="--xla_force_host_platform_device_count=8",
+                OMP_NUM_THREADS="1")
+
+
+@pytest.fixture(scope="module")
+def jax_layouts(tmp_path_factory):
+    """The JAX side's dumps, one subprocess for both layout tests:
+    ``(one-stage records, two-stage records)``."""
+    out = tmp_path_factory.mktemp("jax_layout") / "jax.json"
+    subprocess.run([sys.executable, str(LAYOUT), "jax", str(out)],
+                   env=_layout_env(), check=True,
+                   timeout=SUBPROCESS_TIMEOUT_S)
+    return (json.loads(out.read_text()),
+            json.loads(Path(str(out) + ".staged.json").read_text()))
+
+
+def test_dtensor_layout_equals_jax_on_8_ranks(tmp_path, jax_layouts):
     subprocess.run([sys.executable, str(LAYOUT), "torch",
                     str(tmp_path / "rendezvous"), str(tmp_path)],
-                   env=env, check=True, timeout=SUBPROCESS_TIMEOUT_S)
-    want = json.loads(jax_out.read_text())
+                   env=_layout_env(), check=True,
+                   timeout=SUBPROCESS_TIMEOUT_S)
+    want = jax_layouts[0]
     ranks = [json.loads((tmp_path / f"rank{r}.json").read_text())
              for r in range(8)]
     composite = 0
@@ -261,6 +274,50 @@ def test_dtensor_layout_equals_jax_on_8_ranks(tmp_path):
                                 "local": [b - a for a, b in window],
                                 "offset": [a for a, _ in window]}, (key, r)
     assert len(want) == len(ranks[0]) and composite > 0
+
+
+def _merged_window(window, shape, port_shape):
+    """A JAX slice of a reference leaf whose leading dims the port merges
+    into one (the hybrid's [G, E, ...] states as [G * E, ...]), as the
+    slice of the port's leaf; None when it is not one slice there."""
+    n = len(shape) - len(port_shape)
+    if n == 0:
+        return window
+    lead, inner = window[:n + 1], shape[1:n + 1]
+    stride = math.prod(inner)
+    whole = all(a == 0 and b == size
+                for (a, b), size in zip(lead[1:], inner))
+    if not whole:
+        return None
+    return [[lead[0][0] * stride, lead[0][1] * stride]] + window[n + 1:]
+
+
+def test_staged_layout_equals_jax_on_8_ranks(tmp_path, jax_layouts):
+    """The two-stage plan on the 2x4 and 2x2x2 meshes: each rank's slice
+    of every parameter leaf (a staged leaf through its members' bands) and
+    of every decode-state leaf (dense, the draft's twins, the page pool)
+    equals JAX's ``devices_indices_map`` under the reference plan's rules,
+    ranks 0-7 placed as fake-process-group ranks (no communication)."""
+    subprocess.run([sys.executable, str(LAYOUT), "staged", str(tmp_path)],
+                   env=_layout_env(), check=True,
+                   timeout=SUBPROCESS_TIMEOUT_S)
+    want = jax_layouts[1]
+    ranks = [json.loads((tmp_path / f"staged_rank{r}.json").read_text())
+             for r in range(8)]
+    assert set(ranks[0]) == set(want)
+    staged = {"param": 0, "state": 0}
+    for key, rec in want.items():
+        kind = "state" if "|state:" in key else "param"
+        staged[kind] += rec["pspec"].startswith("PartitionSpec('data'")
+        for r, got in enumerate(ranks):
+            window = _merged_window(rec["slices"][str(r)], rec["shape"],
+                                    got[key]["shape"])
+            assert window is not None, (key, r)
+            assert got[key]["local"] == [b - a for a, b in window], (key, r)
+            assert got[key]["offset"] == [a for a, _ in window], (key, r)
+            if got[key]["shape"] == rec["shape"]:
+                assert got[key]["pspec"] == rec["pspec"], (key, r)
+    assert staged["param"] > 0 and staged["state"] > 0, staged
 
 
 # ---------------------------------------------------------------------------

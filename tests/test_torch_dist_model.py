@@ -15,8 +15,11 @@ position 3: [8, vocab] and finite in bf16 (the reference's check), the
 same greedy tokens where the unsharded top-2 gap exceeds 0.1, and within
 1e-2 of the unsharded step on an fp32 copy (a bf16 step moves by a few
 bf16 steps under the sharded reduction order: 0.03 here). A two-stage
-plan on the same mesh still refuses to place its parameters
-(``NotImplementedError`` naming part 2c) and leaves them plain.
+plan on the same mesh places its parameters: on every rank the bytes of
+its parameters equal its share under the plan's PartitionSpecs (the
+reference's: the layer stack over ``data``), every parameter is a
+DTensor, and each rank holds nothing of the staged members of the other
+data row (half of them).
 """
 
 import sys
@@ -63,8 +66,15 @@ def test_sharded_loss_grad_and_moe_decode_on_8_ranks(tmp_path):
     want = jax_weights_and_losses(weights)
     got = spawn.run("model", tmp_path, weights)
     staged = got.pop("staged")
-    assert "part 2c" in staged["error"], staged
-    assert staged["plain"] and not staged["sharded"], staged
+    assert len(staged) == spawn.WORLD
+    for rank, rec in enumerate(staged):
+        assert rec["sharded"] and rec["dtensor"], (rank, rec)
+        for stages in (1, 2):
+            assert rec[f"bytes_{stages}"] == rec[f"share_{stages}"], (rank,
+                                                                      rec)
+        # 2 layers on 2 data rows: a rank holds one layer's members
+        assert rec["staged"] > 0 and rec["empty"] * 2 == rec["staged"], (
+            rank, rec)
     assert set(got) == set(want)
     for name, rec in got.items():
         ctx = (name, rec)

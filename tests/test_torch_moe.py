@@ -468,13 +468,11 @@ _MODES = {"fifo": ("fifo", 1, False, False),
           "spec-paged-k4": ("continuous", 4, True, True)}
 
 
-@pytest.mark.parametrize("mode", list(_MODES))
-@pytest.mark.parametrize("quantized", [False, True],
-                         ids=["float", "quantized"])
-@pytest.mark.parametrize("arch", ARCHS)
-def test_streams_match_reference(arch, quantized, mode, test_seed):
-    """The parity trace through the port and the reference in one mode:
-    equal streams up to the gap rule, one step per mode, slots refilled
+def check_streams(arch, quantized, mode, test_seed):
+    """The parity trace through the port and the reference in one mode
+    (``tests/test_torch_moe_streams.py`` runs every mode; a file of its
+    own, so that ``--dist loadfile`` runs it beside this one): equal
+    streams up to the gap rule, one step per mode, slots refilled
     (continuous), speculative verifies (spec), every page back but scratch
     and prefix pages (paged). The speculative verify routes 2 x 4 tokens
     at once, so its capacity couples the slots; both packages drop the
