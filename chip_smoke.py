@@ -273,6 +273,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
     ``decode_32k`` multi-pod, zamba2 ``long_500k`` single-pod (each "1
     ok") and yi-6b ``long_500k`` (skipped with the reference's reason);
     each record's memory and roofline lines are printed.
+22. The port's static analysis: ``python -m repro_torch.analysis --json
+    -`` in a process of its own (stdlib only; the chip host's Python). It
+    must exit 0 with an ``ok`` report of RA201, RA401 and RA501 over
+    ``src/repro_torch`` under ``analysis_baseline_torch.json``; prints
+    ``analysis: OK (N files, 3 rules, B baselined)``.
 
 Roofline lines: the yi-6b prefill (phase 6), the yi-6b quantized paged
 micro-run (phase 9) and the qwen1.5-4b train step (phase 17) each run one
@@ -494,6 +499,7 @@ STAGED_ARCH, STAGED_MESH, STAGED_RANKS = "yi-6b", (2, 4), (0, 4)
 STAGED_TIMEOUT_S = 150
 ALLOC_BLOCK = 512                 # the caching allocator's smallest block
 DRYRUN_TIMEOUT_S = 150
+ANALYSIS_TIMEOUT_S = 60           # phase 22: seconds on any host
 DRYRUN_CELLS = (                  # (arch, shape, flags, status)
     ("yi-6b", "train_4k", ["--single-pod", "--stages", "1"], "ok"),
     ("yi-6b", "train_4k", ["--single-pod", "--stages", "2"], "ok"),
@@ -2997,6 +3003,32 @@ def run_staged(smi):
     return figures
 
 
+def run_analysis() -> dict:
+    """Phase 22: the port's static analysis (``python -m
+    repro_torch.analysis --json -``) in a process of its own under this
+    host's Python; it must exit 0 with an ``ok`` report of its three
+    rules. Prints ``analysis: OK (N files, 3 rules, B baselined)`` and
+    returns the report's counts."""
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--json", "-"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=ANALYSIS_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"repro_torch.analysis exited "
+                             f"{proc.returncode}: {proc.stdout[-3000:]}"
+                             f"{proc.stderr[-3000:]}")
+    report, _ = json.JSONDecoder().raw_decode(proc.stdout)
+    rules = [r["id"] for r in report["rules"]]
+    if not report["ok"] or rules != ["RA201", "RA401", "RA501"]:
+        raise AssertionError(f"analysis report: {report}")
+    counts = report["counts"]
+    print(f"analysis: OK ({counts['files']} files, {len(rules)} rules, "
+          f"{counts['baselined']} baselined) in "
+          f"{time.perf_counter() - t:.1f} s")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one card",
@@ -3212,6 +3244,9 @@ def main() -> int:
     free_card()
     run_staged(smi)
     print(f"phase 21 done at {time.perf_counter() - t_start:.1f} s")
+    # phase 22: the static analysis of the port, in a process of its own
+    run_analysis()
+    print(f"phase 22 done at {time.perf_counter() - t_start:.1f} s")
     train_paths = {
         f"{TRAIN_ARCH} adamw train, {TRAIN_STEPS} steps (phase 17)":
             trained["launches"],

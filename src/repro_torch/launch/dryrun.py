@@ -91,25 +91,23 @@ def placed_param_bytes(plan) -> Dict[str, int]:
             "stacked_param_bytes": _bytes([placed[n] for n in stacked])}
 
 
-def _batch(model, shape, kind: str) -> Dict[str, Any]:
+def _batch(plan, model, shape, kind: str) -> Dict[str, Any]:
     """The step's inputs at ``shape`` (the family's ``input_specs``) as
-    meta tensors laid out over the data axes; a prefill takes no
-    labels."""
-    from repro_torch.dist.sharding import shard_act
-
+    meta tensors laid out over the data axes by the plan; a prefill takes
+    no labels."""
     specs = model.input_specs(shape)
     if kind == "prefill":
         specs.pop("labels", None)
-    return {name: shard_act(torch.empty(s, dtype=dt, device="meta"),
-                            "batch")
-            for name, (s, dt) in specs.items() if name != "pos"}
+    return plan.place_batch({name: torch.empty(s, dtype=dt, device="meta")
+                             for name, (s, dt) in specs.items()
+                             if name != "pos"})
 
 
 def _step(plan, model, shape):
     """``(run, arguments, in-place bytes)`` of the plan's step for the
     shape's kind, its inputs placed as meta shards."""
     kind = shape.kind
-    batch = _batch(model, shape, kind)
+    batch = _batch(plan, model, shape, kind)
     params = _bytes(list(model.parameters()))
     if kind == "train":
         opt = plan.placed_opt_state(model)

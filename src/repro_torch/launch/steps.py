@@ -24,6 +24,7 @@ from repro_torch.models.base import (
     prefill_inputs,
     split_spec_state,
     state_batch_axes,
+    train_inputs,
     wipe_state_slots,
 )
 from repro_torch.serve.validation import validate_spec_geometry
@@ -54,16 +55,6 @@ def make_prefill_step(cfg: ArchConfig, shape: ShapeSpec) -> Step:
         return model.forward(batch)
 
     return prefill_step
-
-
-def train_inputs(cfg: ArchConfig, shape: ShapeSpec
-                 ) -> Dict[str, Tuple[int, ...]]:
-    """The shapes of a training batch at ``shape``, by name: the prefill
-    inputs (``prefill_inputs``) and ``labels`` shaped as ``tokens`` (the
-    reference's ``input_specs`` for a train shape)."""
-    want = {name: s for name, (s, _) in prefill_inputs(cfg, shape).items()}
-    want["labels"] = want["tokens"]
-    return want
 
 
 def make_train_step(cfg: ArchConfig, shape: ShapeSpec, optimizer,

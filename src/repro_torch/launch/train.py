@@ -62,8 +62,7 @@ import tempfile
 import numpy as np
 
 from repro_torch.data.pipeline import make_train_iterator
-from repro_torch.launch.steps import train_inputs
-from repro_torch.models.base import SHAPES, ShapeSpec
+from repro_torch.models.base import SHAPES, ShapeSpec, train_inputs
 from repro_torch.plan import MeshSpec, build_plan
 from repro_torch.train.trainer import Trainer, TrainerConfig, model_loss
 

@@ -153,6 +153,16 @@ def prefill_inputs(cfg: ArchConfig, shape: ShapeSpec
     return inputs
 
 
+def train_inputs(cfg: ArchConfig, shape: ShapeSpec
+                 ) -> Dict[str, Tuple[int, ...]]:
+    """The shapes of a training batch at ``shape``, by name: the prefill
+    inputs (``prefill_inputs``) and ``labels`` shaped as ``tokens`` (the
+    reference's ``input_specs`` for a train shape)."""
+    want = {name: s for name, (s, _) in prefill_inputs(cfg, shape).items()}
+    want["labels"] = want["tokens"]
+    return want
+
+
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 

@@ -55,6 +55,8 @@ from repro_torch.dist.sharding import (
     PartitionSpec,
     local_value,
     pspec_to_placements,
+    serving_grad_mode,
+    shard_act,
     sharded,
     spec_to_pspec,
 )
@@ -154,6 +156,24 @@ class ExecutionPlan:
         process-wide, so a backward must run inside the context too."""
         with sharded(self.mesh, self.rules):
             yield self
+
+    @staticmethod
+    def serving_grad_mode():
+        """The autograd mode of the serve path, decided at the call
+        (``dist.sharding.serving_grad_mode``): ``torch.inference_mode()``
+        on one device, ``torch.no_grad()`` inside the plan's sharding
+        context (:meth:`activate`). The batcher drains its queue under
+        it."""
+        return serving_grad_mode()
+
+    @staticmethod
+    def place_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+        """A step's input batch laid out over the data axes inside
+        :meth:`activate` (``shard_act(x, "batch")`` per input, as the
+        train step lays out its batch and as the reference's compiled
+        steps take their inputs' shardings from the plan); outside a
+        sharding context each tensor as it is."""
+        return {name: shard_act(x, "batch") for name, x in batch.items()}
 
     # -- parameters / placement ----------------------------------------------
 
@@ -467,7 +487,7 @@ class ExecutionPlan:
 
     def _key(self, kind: str, batch: int, max_len: int,
              prefill_len: int = 0, steps: int = 1, paged=(),
-             spec=()) -> CacheKey:
+             spec=(), on_mesh: bool = False) -> CacheKey:
         return CacheKey(
             arch=self.cfg.name, kind=kind, batch=batch, max_len=max_len,
             prefill_len=prefill_len, mode=self.mode,
@@ -475,29 +495,34 @@ class ExecutionPlan:
             quantized=self.cfg.quantized,
             stages=self.ir.pipeline_stages, qsig=self._qsig(),
             steps=steps, paged=tuple(paged), spec=tuple(spec),
+            on_mesh=on_mesh,
         )
 
     def executable(self, kind: Optional[str] = None) -> CachedExecutable:
         """The step for this plan's ShapeSpec ("train", "prefill" or
         "decode"), built once through the ExecutableCache and counted. The
-        train step runs on the plan's mesh when the model was placed
-        (:meth:`shard_model`) before the step was built."""
+        train step runs on the plan's mesh while the model is placed there
+        (:meth:`shard_model`); being bound to the mesh is part of its key,
+        so a step built before :meth:`shard_model` (or
+        :meth:`unshard_model`) is not served after it."""
         shape = self.shape
         if shape is None:
             raise ValueError(
                 "this plan has no pinned ShapeSpec (serve plans build "
                 "per-bucket steps via serve_executable)")
         kind = kind or shape.kind
+        on_mesh = kind == "train" and self.sharded
         builders = {
             "prefill": lambda: make_prefill_step(self.cfg, shape),
             "decode": lambda: make_serve_step(self.cfg, shape),
             "train": lambda: make_train_step(
                 self.cfg, shape, self.optimizer,
-                mesh=self.mesh if self.sharded else None, rules=self.rules),
+                mesh=self.mesh if on_mesh else None, rules=self.rules),
         }
         if kind not in builders:
             raise ValueError(f"unknown executable kind {kind!r}")
-        key = self._key(kind, shape.global_batch, shape.seq_len)
+        key = self._key(kind, shape.global_batch, shape.seq_len,
+                        on_mesh=on_mesh)
         self._built_any = True
         return self.cache.get_or_build(key, builders[kind])
 

@@ -40,7 +40,6 @@ from typing import Deque, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.dist.sharding import serving
 from repro_torch.models.base import ArchConfig
 from repro_torch.serve.cache import CachedExecutable, ExecutableCache
 from repro_torch.serve.state_pool import StatePool
@@ -383,21 +382,23 @@ class ServeBatcher:
 
     # -- dispatch -------------------------------------------------------------
 
-    @serving
     def run(self) -> Dict[str, RequestResult]:
         """Drain the queue: group -> dispatch until empty, or hand the
-        whole queue to the continuous scheduler."""
+        whole queue to the continuous scheduler; under the plan's serving
+        grad mode."""
         model = self.plan.model          # raises when nothing is loaded
         results: Dict[str, RequestResult] = {}
-        if self._scheduler is not None:
-            results = self._scheduler.run(self._pending, model, self.metrics)
-            self.last_shed = self._scheduler.drain_shed()
-            self._pending_ids.difference_update(self.last_shed)
-        else:
-            while self._pending:
-                group, bucket = self._form_group()
-                for res in self._dispatch(model, group, bucket):
-                    results[res.request_id] = res
+        with self.plan.serving_grad_mode():
+            if self._scheduler is not None:
+                results = self._scheduler.run(self._pending, model,
+                                              self.metrics)
+                self.last_shed = self._scheduler.drain_shed()
+                self._pending_ids.difference_update(self.last_shed)
+            else:
+                while self._pending:
+                    group, bucket = self._form_group()
+                    for res in self._dispatch(model, group, bucket):
+                        results[res.request_id] = res
         self._pending_ids.difference_update(results)
         return results
 

@@ -6,7 +6,7 @@ run eagerly), but the plan still routes every step through one cache
 keyed by everything that changes the program:
 
     (arch, kind, batch, max_len, prefill_len, mode, mesh signature,
-     quantized, stages, qsig, steps, paged, spec)
+     quantized, stages, qsig, steps, paged, spec, on_mesh)
 
 so the ``hits`` / ``misses`` / ``builds`` counters show that a warm
 bucket performs zero new builds, as in the reference, where the same
@@ -27,12 +27,15 @@ from repro_torch.dist.sharding import mesh_axis_sizes
 class CacheKey:
     """Identity of one step function.
 
-    The fields are the reference's. ``mesh_axes`` holds the plan's mesh
-    signature (``(("data", 1), ("model", 1))``) and ``stages`` its
-    pipeline stages; ``steps`` is the masked micro-run's length, ``paged``
-    its ``(page_count, page_size)`` and ``spec`` its ``(spec_k,
-    draft_layers)``. A step binds shapes only, not a device, so plans on
-    two devices may share an entry.
+    The fields are the reference's, and ``on_mesh``. ``mesh_axes`` holds
+    the plan's mesh signature (``(("data", 1), ("model", 1))``) and
+    ``stages`` its pipeline stages; ``steps`` is the masked micro-run's
+    length, ``paged`` its ``(page_count, page_size)`` and ``spec`` its
+    ``(spec_k, draft_layers)``. ``on_mesh`` marks a train step bound to
+    the plan's mesh, which the port's plan builds only while its model is
+    placed there (the reference fixes the mesh when the plan is built and
+    needs no such field). A step binds shapes only, not a device, so plans
+    on two devices may share an entry.
     """
 
     arch: str
@@ -48,6 +51,7 @@ class CacheKey:
     steps: int = 1
     paged: Tuple[int, ...] = ()
     spec: Tuple[int, ...] = ()
+    on_mesh: bool = False
 
     @staticmethod
     def mesh_signature(mesh) -> Tuple[Tuple[str, int], ...]:

@@ -1,6 +1,7 @@
 """The port's compiler passes vs the JAX package's, on the same graphs:
 equal shifts, packed tensors, cascades, memory-tile edges and placements."""
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import dataclasses
 
 import numpy as np

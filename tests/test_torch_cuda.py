@@ -6,6 +6,7 @@ JAX, so they also run where JAX is not installed:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import numpy as np
 import pytest
 import torch

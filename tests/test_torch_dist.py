@@ -13,6 +13,7 @@ ranks must hold exactly the slice ``devices_indices_map`` gives device r
 seeded numpy, never hypothesis.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import json
 import math
 import os

@@ -22,6 +22,7 @@ DTensor, and each rank holds nothing of the staged members of the other
 data row (half of them).
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import sys
 from pathlib import Path
 

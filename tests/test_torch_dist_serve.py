@@ -23,6 +23,7 @@ hard timeout (``file://`` rendezvous, one thread per rank):
   is below 0.02 (``tests/_torch_serve_ref.py``'s rule).
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import sys
 from pathlib import Path
 

@@ -27,6 +27,7 @@ through the bridge):
   one-stage sharded plan too; ROADMAP port note 14.)
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import sys
 from pathlib import Path
 

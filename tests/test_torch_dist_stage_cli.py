@@ -13,6 +13,7 @@ environment (``launch.mesh``) and builds the 2x4 debug mesh.
   rank prints the sharded plan with its two stages and ``done: loss``.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import os
 import re
 import subprocess

@@ -27,6 +27,7 @@ of 8 x 16 tokens of the synthetic stream (seed 7):
   mean over the data blocks.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import os
 import subprocess
 import sys

@@ -27,6 +27,7 @@ analysis, launch nothing and return an empty output of the right shape
 and dtype; on a device that is neither the CPU nor the card they raise.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import json
 import math
 import os

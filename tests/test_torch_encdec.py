@@ -16,6 +16,7 @@ the first step whose reference top-2 gap is under ``MIN_GAP``
 (``tests/_torch_serve_ref.py``).
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import functools
 import re
 

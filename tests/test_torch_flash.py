@@ -7,6 +7,7 @@ in bf16. The CUDA kernel itself is held against the plain version on the
 card (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -23,6 +23,7 @@ The reference's continuous k = 4 streams differ from its fifo streams
 is red), which is why the port is held to each mode's own streams.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import functools
 import re
 

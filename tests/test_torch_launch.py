@@ -12,6 +12,7 @@ nothing of the plain version it runs on the CPU. The plan CLI runs the
 counterparts of the reference's CI ``plan-smoke`` jobs on the CPU.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import json
 
 import jax

@@ -16,6 +16,7 @@ every top-2 gap of the reference's float and quantized streams above
 0.09 at weight seed 0.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -8,6 +8,7 @@ kernel wrappers raise on grad-requiring inputs, the card's fp32-output
 GEMM has a backward).
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import pytest
 import torch
 from _torch_train_ref import (

@@ -5,6 +5,7 @@ bf16, checkpointing (remat) and the loss curve of 10 adamw steps. The
 checks and their tolerances are ``tests/_torch_train_ref.py``'s.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import pytest
 from _torch_train_ref import (
     check_adamw_curve,

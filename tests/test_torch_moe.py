@@ -27,6 +27,7 @@ logit by up to about 0.05 against the port's eager rounding (see
 tests/test_torch_hybrid.py).
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import functools
 
 import jax

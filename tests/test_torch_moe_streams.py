@@ -6,6 +6,7 @@ the first step whose reference gap is below 0.1
 (``test_torch_moe.check_streams``). A file of its own, so that ``--dist
 loadfile`` runs it beside the layer and model checks."""
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import pytest
 from test_torch_moe import _MODES, ARCHS, check_streams
 

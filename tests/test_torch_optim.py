@@ -13,6 +13,7 @@ gradients, for several steps: parameters and state within rtol 1e-6
 bit-exact (``array_equal``) to the reference's.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

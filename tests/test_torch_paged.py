@@ -9,6 +9,7 @@ reference top-2 gap is below 0.02). After every run the pool must hold
 only scratch pages and prefix-cache entries.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

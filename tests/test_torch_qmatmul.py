@@ -3,6 +3,7 @@ JAX reference, over the grid of tests/test_qmatmul_kernel.py plus every
 rounding mode and a forced int32-wraparound case. Every comparison is
 array_equal: all paths are integer."""
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

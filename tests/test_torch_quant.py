@@ -1,6 +1,7 @@
 """The port's quant substrate vs the JAX reference: bit-exact SRS, shifts,
 quantize/dequantize/requantize on the same numpy inputs."""
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import importlib
 
 import jax.numpy as jnp

@@ -19,6 +19,7 @@ first step whose reference gap is below 0.1 (its compiled steps keep
 excess bf16 precision; see tests/test_torch_hybrid.py).
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import re
 
 import jax

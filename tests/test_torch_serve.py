@@ -12,6 +12,7 @@ are checked on a host stand-in executable with positional-receipt tokens,
 through the reference's own invariant checker.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import asyncio
 import collections
 import re

@@ -20,6 +20,7 @@ request must hold exactly ``[P, ..., P + n - 1]``; the reference's own
 checkers (``_serve_stubs``) judge the port's scheduler.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import collections
 
 import jax

@@ -14,6 +14,7 @@ different orders before each bf16 rounding. The SSD against the naive
 recurrence keeps the reference's 1e-3 (outputs) and 1e-4 (final state).
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

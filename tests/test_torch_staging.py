@@ -22,6 +22,7 @@ product entry points.
   world: it is the dry run's only.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import os
 import subprocess
 import sys

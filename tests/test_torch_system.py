@@ -2,6 +2,7 @@
 float weights to dequantized outputs, the weight bridge, and the import and
 device guards of the package."""
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import ast
 import os
 import subprocess

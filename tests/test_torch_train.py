@@ -12,6 +12,7 @@ fp32 copies, where the microbatch mean equals the full batch's to rtol
 1e-5.
 """
 
+import _torch_threads  # noqa: F401  (one torch thread per worker)
 import json
 import os
 import re
