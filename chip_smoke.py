@@ -6,7 +6,9 @@
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. Print the card's name and power limit, then build every CUDA kernel of
-   the path from the sources in this checkout (one nvcc per source).
+   the path from the sources in this checkout (one nvcc per source), and
+   print each kernel's registers and spills (``-Xptxas -v``) beside its
+   name; the bf16 flash body (``flash_kernel_wgmma``) must not spill.
 2. Hold the qmatmul kernel against its plain torch version on the card with
    ``torch.equal``: the grid of the reference's kernel tests (every shape,
    all three operand pairs, both outputs, all three roundings, shifts 0-12,
@@ -30,9 +32,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    card: the grid of the reference's flash tests (every shape, causal and
    not, the q_start offset, the block sweep as shapes, bf16, scores x100),
    the ragged q_start case, all of that again in bf16 (the tensor-core
-   body), bf16 at every head dim (ragged causal, q_start, non-causal), and
-   the yi-6b path shape [2*32, 2048, 128] bf16 causal. Tolerance: fp32
-   atol = rtol = 2e-5, bf16 atol 2e-2.
+   body), bf16 at every head dim (ragged causal, q_start, non-causal),
+   the bf16 body at path width where TMA's zero fill is reached (Sq = Sk
+   = 2000 causal at head dims 128 and 80, with q_start 0 and 48, and
+   non-causal head dim 64 at Sk = 2016, a multiple of 32 but not of 128),
+   and the yi-6b path shape [2*32, 2048, 128] bf16 causal. Each case must
+   launch the kernel once. Tolerance: fp32 atol = rtol = 2e-5, bf16 atol
+   2e-2.
 6. Prefill at full width: yi-6b (32 layers, d_model 4096, 6.06 B
    parameters, random bf16 weights from seed 0) through the plan's
    ``executable("prefill")`` on tokens [2, 2048] from numpy seed 0 (cut to
@@ -74,9 +80,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    LM shapes with the L2 cold (rotating over weight copies of more than
    50 MB) beside its bound and, for the int8 head, ``torch._int_mm`` with x
    zero-padded to 32 rows (no PyTorch call takes the a16w8 int16
-   operands), and the flash kernel at the path shape beside its bound, its
+   operands), and the flash kernel at each path shape beside its bound, its
    plain version and ``torch.nn.functional.scaled_dot_product_attention``
-   (yardsticks the port never calls).
+   (yardsticks the port never calls), with its ratio to SDPA and its
+   TFLOP/s, counted (``ops.work``) and issued (1.5 x counted: the bf16
+   kernel runs P.V twice, for P's hi and lo parts).
 
 9. Continuous serving at full width, quantized, on phase 6's model and
    phase 7's calibrated plan: one bucket of batch 8 x max_len 512,
@@ -307,6 +315,7 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 import contextlib  # noqa: E402
 import gc  # noqa: E402
 import json  # noqa: E402
+import re  # noqa: E402
 import shutil  # noqa: E402
 import statistics  # noqa: E402
 import subprocess  # noqa: E402
@@ -377,8 +386,9 @@ SMALL_M_SHAPES = [(M, K, 300) for M in (1, 4, 16, 17) for K in (70, 11008)]
 # flash cases (BH, Sq, Sk, hd, dtype, causal, q_start, x100): the grid of
 # tests/test_flash_attention.py, its block sweep as shapes, the ragged
 # q_start case, the whole grid again in bf16, bf16 at every head dim, the
-# grid at zamba2's head dim 80 in fp32 and bf16, and the two LM path
-# shapes
+# grid at zamba2's head dim 80 in fp32 and bf16, and the bf16 body at
+# path width off its 128-row tiles (TMA zero-fills the rows past S); main()
+# adds the path shapes
 _FLASH_GRID = (
     [(2, s, s, hd, "fp32", c, 0, False)
      for s, hd in ((32, 16), (64, 8), (128, 32), (96, 16))
@@ -398,9 +408,15 @@ FLASH_CASES = (
                     (2, 96, 96, hd, "bf16", False, 0, False))]
     + [c[:3] + (80, dtype) + c[5:] for c in _FLASH_GRID if c[4] == "fp32"
        for dtype in ("fp32", "bf16")]
+    + [(2, 2000, 2000, hd, "bf16", True, q_start, False)
+       for hd in (128, 80) for q_start in (0, 48)]
+    + [(2, 2016, 2016, 64, "bf16", False, 0, False)]
 )
 FLASH_TOL = {"fp32": dict(atol=2e-5, rtol=2e-5), "bf16": dict(atol=2e-2,
                                                               rtol=0.0)}
+# tensor work the bf16 kernel issues per counted operation: Q K^T once and
+# P V twice (P's hi and lo parts)
+FLASH_ISSUED = 1.5
 
 # the LM main path: yi-6b at full width, cut to batch and sequence
 PREFILL_BATCH, PREFILL_SEQ = 2, 2048
@@ -774,8 +790,12 @@ class FlashChecker:
         q, k, v = flash_inputs(BH, Sq, Sk, hd, dtype, dev, seed=self.cases)
         if x100:
             q, k = q * 100, k * 100
+        before = self.ops.launches
         got = self.ops.flash_attention(q, k, v, causal=causal,
                                        q_start=q_start)
+        if self.ops.launches != before + 1:
+            raise AssertionError(f"flash {BH, Sq, Sk, hd, dtype}: "
+                                 f"{self.ops.launches - before} launches")
         want = self.ref(q, k, v, causal=causal, q_start=q_start)
         torch.cuda.synchronize()
         self.cases += 1
@@ -786,6 +806,39 @@ class FlashChecker:
         torch.testing.assert_close(got.float(), want.float(),
                                    **FLASH_TOL[dtype])
         return err
+
+
+def kernel_name(mangled):
+    """A kernel's name and integer template arguments from its mangled
+    name, e.g. ``flash_kernel_wgmma<128>``."""
+    m = re.match(r"_ZN?", mangled)
+    if not m:
+        return mangled
+    i, name = m.end(), mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+    args = (re.findall(r"L[ib](\d+)E", mangled[i:])
+            if mangled[i:i + 1] == "I" else [])
+    return name + (f"<{','.join(args)}>" if args else "")
+
+
+def ptxas_report(name, log):
+    """Print each kernel's ``-Xptxas -v`` registers and spills beside its
+    name; return the kernels that spill."""
+    kernel, spilled = "?", []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kernel = kernel_name(m.group(1))
+        elif "registers" in line or "spill" in line:
+            print(f"  {name} {kernel}: {line.strip()}")
+            if re.search(r"\b[1-9]\d* bytes spill", line):
+                spilled.append(kernel)
+    return spilled
 
 
 def flash_inputs(BH, Sq, Sk, hd, dtype, dev, seed=0):
@@ -2005,13 +2058,18 @@ def time_flash(flash_ops, attention_ref, dev, case):
         q4, k4, v4, is_causal=causal), iters=20)
     wk = flash_ops.work(BH, Sq, Sk, hd, q.dtype, causal)
     t, by = bound_ms(wk)
+    counted = wk.ops / ms / 1e9
+    issued = FLASH_ISSUED * counted if dtype == "bf16" else counted
     mode = "causal" if causal else "non-causal"
     print(f"flash [{BH}, {Sq}, {hd}] {dtype} {mode}: kernel {ms:.6f} ms, "
           f"bound {t:.6f} ms ({by}), plain {plain:.6f} ms (not a "
           f"yardstick), SDPA {sdpa:.6f} ms (yardstick, never called by the "
-          f"port)")
+          f"port), kernel/SDPA {ms / sdpa:.3f}, {counted:.1f} TFLOP/s "
+          f"counted, {issued:.1f} issued")
     return dict(ms=ms, plain_ms=plain, library_ms=sdpa, bound_ms=t,
-                bound_by=by, ops=wk.ops, bytes=wk.bytes)
+                bound_by=by, ops=wk.ops, bytes=wk.bytes,
+                over_library=ms / sdpa, tflops_counted=counted,
+                tflops_issued=issued)
 
 
 def roofline(name, fn, measured_ms, cfg, shape, want, smi, steps=1):
@@ -3055,10 +3113,10 @@ def main() -> int:
     t0 = time.perf_counter()
     reports = build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s")
-    for name, log in reports.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+    spilled = [k for name, log in reports.items()
+               for k in ptxas_report(name, log)]
+    if any(k.startswith("flash_kernel_wgmma") for k in spilled):
+        raise AssertionError(f"the bf16 flash body spills: {spilled}")
     for name in build.SOURCES:
         build.load(name)
 

@@ -4,9 +4,10 @@ device.
 A CPU tensor goes to the plain version (:func:`attention_ref`). A CUDA
 tensor goes to the hand-written Hopper kernel in
 ``csrc/flash_attention.cu``, or the call raises: nothing falls back. bf16
-runs on the tensor cores (``flash_kernel_mma``), fp32 on the CUDA cores
-(``flash_kernel``). The kernel masks ragged edges itself, so nothing is
-padded here.
+runs on the tensor cores in ``flash_kernel_wgmma`` (wgmma fed by TMA, a
+producer warpgroup and two consumer warpgroups, 128 query rows a block),
+fp32 on the CUDA cores in ``flash_kernel`` (64 rows a block). The kernel
+masks ragged edges itself, so nothing is padded here.
 """
 
 from __future__ import annotations
@@ -33,8 +34,9 @@ launches = 0
 
 HEAD_DIMS = (8, 16, 32, 64, 80, 128)   # head dims the kernel is built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_Q_TILES = 65535               # grid y: one block per 64 query rows
-_ALIGN = 16                        # bf16 tiles are copied 16 bytes at a time
+_MAX_Q_TILES = 65535               # grid y of the fp32 body
+_MAX_BLOCKS = 2**31 - 1            # the 1-D grid of the bf16 body
+_ALIGN = 16                        # TMA and cp.async need 16-byte bases
 
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -46,6 +48,12 @@ _ARGTYPES = [
 
 def _ceil_to(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def rows_per_block(dtype: torch.dtype) -> int:
+    """Query rows one block of the kernel owns: 128 in the bf16 body, 64
+    in the fp32 one."""
+    return 128 if dtype == torch.bfloat16 else 64
 
 
 def work(BH: int, Sq: int, Sk: int, hd: int, dtype: torch.dtype,
@@ -134,8 +142,11 @@ def _check_kernel_args(q, k, v, q_start: int) -> None:
     if not 0 <= q_start < 2**30:
         raise ValueError(f"flash kernel needs 0 <= q_start < 2**30, got "
                          f"{q_start}")
-    if _ceil_to(Sq, 64) // 64 > _MAX_Q_TILES or BH >= 2**31 \
-            or max(Sq, k.shape[1]) >= 2**30:
+    rows = rows_per_block(q.dtype)
+    q_tiles = _ceil_to(Sq, rows) // rows
+    too_many = (BH * q_tiles > _MAX_BLOCKS if rows == 128
+                else q_tiles > _MAX_Q_TILES)
+    if too_many or BH >= 2**31 or max(Sq, k.shape[1]) >= 2**30:
         raise ValueError(f"flash kernel grid too large for q {tuple(q.shape)}")
 
 

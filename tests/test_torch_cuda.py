@@ -154,6 +154,27 @@ def test_flash_bf16_every_head_dim(cuda, hd, causal, Sk, q_start):
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)
 
 
+@pytest.mark.parametrize("Sq,Sk,hd,causal,q_start", [
+    (2000, 2000, 128, True, 0), (2000, 2000, 80, True, 0),
+    (2000, 2000, 128, True, 48), (2000, 2000, 80, True, 48),
+    (2016, 2016, 64, False, 0),
+])
+def test_flash_bf16_body_at_path_width_ragged(cuda, Sq, Sk, hd, causal,
+                                                q_start):
+    """The bf16 body at path width where TMA's zero fill is reached: Sq
+    and Sk off its 128-row tiles, causal with and without a q_start, and
+    non-causal with Sk a multiple of 32 but not of 128."""
+    q, k, v = _qkv(np.random.default_rng(Sk + hd + q_start), 2, Sq, Sk, hd,
+                   torch.bfloat16, cuda)
+    before = flash_ops.launches
+    got = flash_ops.flash_attention(q, k, v, causal=causal, q_start=q_start)
+    torch.cuda.synchronize()
+    assert flash_ops.launches == before + 1
+    want = attention_ref(q, k, v, causal=causal, q_start=q_start)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)
+
+
 def test_flash_kernel_is_stable_at_large_scores(cuda):
     """Scores x100 reach ~1e4, where one fp32 ulp is ~1e-3: the kernel's
     sequential FMAs and the plain version's cuBLAS product round the

@@ -127,12 +127,18 @@ def test_plain_version_launches_nothing():
 
 # --- the arithmetic of the bf16 tensor-core kernel ------------------------
 
-def _mma_kernel_emulation(q, k, v, *, causal, q_start, split_p, bk=64):
-    """The bf16 kernel's arithmetic on the CPU: scores in fp32 in the log2
-    domain (scale hd**-0.5 * log2 e), key tiles of 64 with an online
-    softmax in fp32, P rounded to bf16 before the PV product (with
+def _mma_kernel_emulation(q, k, v, *, causal, q_start, split_p, bk=128):
+    """The bf16 tensor-core kernel's arithmetic on the CPU: scores in fp32
+    in the log2 domain (scale hd**-0.5 * log2 e), key tiles of 128 with an
+    online softmax in fp32, P rounded to bf16 before the PV product (with
     ``split_p``, P = hi + lo in two bf16 parts, as the kernel does), fp32
-    accumulation, o = acc / max(l, 1e-30) rounded once to bf16."""
+    accumulation, o = acc / max(l, 1e-30) rounded once to bf16.
+
+    On a tile off the diagonal and the ragged edge (decided per warp of 16
+    rows) the kernel takes the row max of the raw scores and fuses the
+    scale into the exponent's FMA (here an FMA in float64); elsewhere it
+    scales and masks first. It rescales acc, then adds P_hi V, then
+    P_lo V."""
     BH, Sq, hd = q.shape
     Sk = k.shape[1]
     qf, kf, vf = q.float(), k.float(), v.float()
@@ -141,21 +147,28 @@ def _mma_kernel_emulation(q, k, v, *, causal, q_start, split_p, bk=64):
     m = torch.full((BH, Sq, 1), -1e30)
     l = torch.zeros((BH, Sq, 1))
     acc = torch.zeros((BH, Sq, hd))
-    qpos = q_start + torch.arange(Sq)[:, None]
+    rows = torch.arange(Sq)[:, None]
+    qpos = q_start + rows
+    warp_first = q_start + rows // 16 * 16
     for k0 in range(0, Sk, bk):
-        s = qf @ kf[:, k0:k0 + bk].transpose(1, 2) * scale_log2
+        s = qf @ kf[:, k0:k0 + bk].transpose(1, 2)
+        x = s * scale_log2
         if causal:
             kpos = k0 + torch.arange(s.shape[-1])[None, :]
-            s = s.masked_fill(kpos > qpos, -1e30)
-        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            x = x.masked_fill(kpos > qpos, -1e30)
+        edge = (k0 + bk > Sk) | (causal & (k0 + bk - 1 > warp_first))
+        m_edge = torch.maximum(m, x.amax(-1, keepdim=True))
+        m_fused = torch.maximum(m, s.amax(-1, keepdim=True) * scale_log2)
+        m_new = torch.where(edge, m_edge, m_fused)
+        p = torch.where(edge, torch.exp2(x - m_edge),
+                        torch.exp2((s.double() * scale_log2.double()
+                                    - m_fused.double()).float()))
         alpha = torch.exp2(m - m_new)
-        p = torch.exp2(s - m_new)
         l = l * alpha + p.sum(-1, keepdim=True)
         p_hi = p.bfloat16().float()
-        pv = p_hi @ vf[:, k0:k0 + bk]
+        acc = acc * alpha + p_hi @ vf[:, k0:k0 + bk]
         if split_p:
-            pv = pv + (p - p_hi).bfloat16().float() @ vf[:, k0:k0 + bk]
-        acc = acc * alpha + pv
+            acc = acc + (p - p_hi).bfloat16().float() @ vf[:, k0:k0 + bk]
         m = m_new
     return (acc / l.clamp_min(1e-30)).bfloat16()
 
@@ -195,3 +208,45 @@ def test_bf16_probabilities_ragged_q_start(split_p):
                                 split_p=split_p)
     want = attention_ref(tq, tk, tv, causal=True, q_start=8)
     np.testing.assert_allclose(_np(got), _np(want), atol=2e-2)
+
+
+@pytest.mark.parametrize("BH,Sq,Sk,hd,causal,q_start", [
+    (1, 384, 384, 64, True, 0), (1, 384, 384, 64, False, 0),
+    (1, 384, 384, 80, True, 0), (1, 384, 384, 80, False, 0),
+    (1, 384, 384, 128, True, 0), (1, 384, 384, 128, False, 0),
+    (1, 300, 300, 128, True, 0), (1, 300, 300, 80, True, 0),
+    (1, 128, 384, 64, True, 256), (1, 96, 384, 128, True, 288),
+])
+def test_hopper_tiling_stays_within_tolerance(BH, Sq, Sk, hd, causal,
+                                              q_start):
+    """The kernel's arithmetic (tiles of 128 keys, the fused scale off the
+    diagonal, P = hi + lo) at the path's head dims over three key tiles,
+    causal and not, with a ragged Sk and with q_start > 0, within 2e-2 of
+    the plain version and of the JAX kernel (interpret mode)."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(BH, Sq, Sk, hd, seed=Sk + hd),
+                                       "bf16")
+    got = _mma_kernel_emulation(tq, tk, tv, causal=causal, q_start=q_start,
+                                split_p=True)
+    oracle = attention_ref(tq, tk, tv, causal=causal, q_start=q_start)
+    np.testing.assert_allclose(_np(got), _np(oracle), atol=2e-2)
+    want = jax_flash(jq, jk, jv, causal=causal, q_start=q_start)
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-2)
+
+
+@pytest.mark.parametrize("hd", [64, 80, 128])
+def test_hopper_tiling_ragged_q_start(hd):
+    """Ragged Sk (three tiles, the last short) with q_start > 0: held to
+    the plain version only, as above (the reference wrapper pads the keys
+    into the softmax there)."""
+    _, (tq, tk, tv) = _both(_qkv(1, 300, 300, hd, seed=hd), "bf16")
+    got = _mma_kernel_emulation(tq, tk, tv, causal=True, q_start=48,
+                                split_p=True)
+    want = attention_ref(tq, tk, tv, causal=True, q_start=48)
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-2)
+
+
+def test_rows_per_block_follow_the_body():
+    """The grid check counts 128 query rows a block in the bf16 body and
+    64 in the fp32 one."""
+    assert ops.rows_per_block(torch.bfloat16) == 128
+    assert ops.rows_per_block(torch.float32) == 64
