@@ -8,7 +8,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. Print the card's name and power limit, then build every CUDA kernel of
    the path from the sources in this checkout (one nvcc per source), and
    print each kernel's registers and spills (``-Xptxas -v``) beside its
-   name; the bf16 flash body (``flash_kernel_wgmma``) must not spill.
+   name; the bf16 flash body (``flash_kernel_wgmma``) and the qmatmul
+   wgmma body (``qmatmul_kernel_wgmma``) must not spill.
 2. Hold the qmatmul kernel against its plain torch version on the card with
    ``torch.equal``: the grid of the reference's kernel tests (every shape,
    all three operand pairs, both outputs, all three roundings, shifts 0-12,
@@ -16,7 +17,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    int32-wraparound case, decode-sized M (1, 4, 16, 17) at K = 70 and
    11008 for all three operand pairs with split-K on and off, and the two
    LM shapes at M = 4, at M = 8 (phase 9's batch) and at M = 32 (phase
-   10's verify, 8 slots x 4 positions) with split-K on and off.
+   10's verify, 8 slots x 4 positions) with split-K on and off, each
+   through the router and under the mma.sync body's forced plans; the
+   wgmma body forced at M 1-64 (``SWEEP_M``) over the LM shapes; and the
+   profile of a yi-6b verify step's qmatmul calls (M = 32, the wgmma body):
+   one device function per call, no memset.
 3. The main path: compile the five paper models (Table III/V) at their
    published widths with ``build_paper_model(name, device="cuda")`` and
    answer three ``predict(x, "aie")`` requests per model at the Table III
@@ -382,6 +387,10 @@ LM_SHAPES = (LM_QMATMUL + LM_QMATMUL_M8 + LM_QMATMUL_M32 + HYBRID_QMATMUL
 
 # decode-sized M for the 16-row tile and split-K: (M, K, N)
 SMALL_M_SHAPES = [(M, K, 300) for M in (1, 4, 16, 17) for K in (70, 11008)]
+# the wgmma body's M sweep at the LM shapes (K, N, x dtype), the body
+# forced: every M the body's token widths (8, 16, 24, 32, 48, 64) serve
+SWEEP_M = (1, 4, 8, 17, 24, 32, 33, 64)
+SWEEP_SHAPES = sorted({(K, N, dx) for (_, K, N, dx, _, _) in LM_SHAPES})
 
 # flash cases (BH, Sq, Sk, hd, dtype, causal, q_start, x100): the grid of
 # tests/test_flash_attention.py, its block sweep as shapes, the ragged
@@ -683,6 +692,29 @@ def profile_predict(model, x, calls=10):
     return dict(profiled_wall_ms=wall, qmatmul_ms=kernel, other_device_ms=other)
 
 
+def device_function_ms(calls, n=8):
+    """Per call, the device time of the qmatmul device functions alone
+    (torch.profiler, so no launch gap counts), for each body: ``calls``
+    maps "wgmma" or "mma" to a call that runs that body, n times each. A
+    body's time is the sum over its device functions (the mma body's
+    split-K runs two per call) of each one's mean over the launches the
+    profiler recorded, and its ``launches`` how many those were."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn in calls.values():
+            for _ in range(n):
+                fn()
+        torch.cuda.synchronize()
+    out = {body: 0.0 for body in calls}
+    for e in device_events(prof):
+        if "qmatmul_kernel" in e.key:
+            body = "wgmma" if "wgmma" in e.key else "mma"
+            out[body] += e.self_device_time_total / 1e3 / e.count
+            out[f"{body} launches"] = out.get(f"{body} launches", 0) + e.count
+    return out
+
+
 def bound_ms(work):
     """A kernel call's least time on the card, in ms, and what bounds it:
     its analytic work (``ops.work``) over the H100's peaks."""
@@ -727,8 +759,9 @@ def time_shapes(qlinear, qlinear_ref, dev, shapes):
 
 def check_small_m(chk, dev, sms):
     """Decode-sized M over the full int16 range (the sum wraps int32 at
-    K = 11008), all three operand pairs, both outputs, each shape under its
-    own plan, with one split, and with six splits where K allows."""
+    K = 11008), all three operand pairs, both outputs, each shape through
+    the router and under the mma.sync body's own plan, with one split, and
+    with six splits where K allows."""
     rng = np.random.default_rng(17)
     n_split = 0
     for (M, K, N) in SMALL_M_SHAPES:
@@ -737,6 +770,7 @@ def check_small_m(chk, dev, sms):
         if K > 1024:
             plans.add(chk.ops.Plan(auto.block_m, 6, 1856))  # 6 x 1856 >= K
         n_split += sum(p.splits > 1 for p in plans)
+        plans = [None] + sorted(plans)   # the router's body, then forced
         for dt_a, dt_b in OPERANDS:
             x = torch.from_numpy(rng.integers(
                 -(2**15) if dt_a == "int16" else -128,
@@ -755,9 +789,10 @@ def check_small_m(chk, dev, sms):
 
 def check_lm_shapes(chk, dev, sms):
     """qmatmul at the LM shapes with the path's operand types, at M = 4, 8
-    and 32, each under its own plan, with one split and with four; int16 x
-    over both a moderate and the full range (the int32 sum then wraps).
-    Returns the number of split-K plans run."""
+    and 32, through the router (the wgmma body) and under the mma.sync
+    body's own plan, with one split and with four; int16 x over both a
+    moderate and the full range (the int32 sum then wraps). Returns the
+    number of split-K plans run."""
     rng = np.random.default_rng(5)
     n_split = 0
     for (M, K, N, dx, dw, out) in LM_SHAPES:
@@ -770,12 +805,88 @@ def check_lm_shapes(chk, dev, sms):
         plans = {auto, chk.ops.Plan(auto.block_m, 1, K),
                  chk.ops.Plan(auto.block_m, 4, K // 4)}
         n_split += sum(p.splits > 1 for p in plans)
+        plans = [None] + sorted(plans)   # the router's body, then forced
         for x in xs:
             for p in plans:
                 for shift in (2, 7, 10):
                     chk.compare(x, w, None, plan=p, shift=shift,
                                 out_dtype=out)
     return n_split
+
+
+def check_m_sweep(chk, dev, sms):
+    """The wgmma body forced (its own plan) at every M of SWEEP_M and each
+    LM shape (K, N, x dtype), int16 x over its full range, bias near the
+    int32 limits; the router must send M above 16 there to it and the rest
+    to the mma.sync body. Returns the number of cases."""
+    ops = chk.ops
+    rng = np.random.default_rng(19)
+    n = 0
+    for (K, N, dx) in SWEEP_SHAPES:
+        w = torch.from_numpy(_rand(rng, (K, N), "int8")).to(dev)
+        b = torch.from_numpy(rng.integers(
+            -(2**31), 2**31, (N,)).astype(np.int32)).to(dev)
+        lo = -(2**15) if dx == "int16" else -128
+        for M in SWEEP_M:
+            want = "wgmma" if M > ops.SMALL_M else "mma"
+            if ops.route(M, K, N, getattr(torch, dx), torch.int8) != want:
+                raise AssertionError(f"{M}x{K}x{N} {dx} is not routed to "
+                                     f"the {want} body")
+            x = torch.from_numpy(rng.integers(lo, -lo, (M, K)).astype(
+                dx)).to(dev)
+            p = ops.wgmma_plan(M, K, N, sms)
+            chk.compare(x, w, None, plan=p, shift=9, out_dtype="int16")
+            chk.compare(x, w, b, plan=p, shift=12, relu=True,
+                        out_dtype="int8", rounding="half_even")
+            n += 2
+    return n
+
+
+def wrapper_profile(ops, dev, M=32, L=32):
+    """The device functions and memsets of one yi-6b verify step's qmatmul
+    calls made through the wrapper alone (the head and L a16w8
+    down-projections at M rows, routed to the wgmma body), after a warm-up
+    call of each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(23)
+    head = [torch.from_numpy(_rand(rng, s, d)).to(dev) for s, d in
+            (((M, 4096), "int8"), ((4096, 64000), "int8"))]
+    down = [torch.from_numpy(_rand(rng, s, d)).to(dev) for s, d in
+            (((M, 11008), "int16"), ((11008, 4096), "int8"))]
+
+    def step():
+        for _ in range(L):
+            ops.qlinear(*down, None, shift=7, out_dtype="int16")
+        ops.qlinear(*head, None, shift=7, out_dtype="int16")
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    events = {e.key: e.count for e in device_events(prof)}
+    return ({k: n for k, n in events.items() if "qmatmul" in k},
+            sum(n for k, n in events.items() if "memset" in k.lower()),
+            L + 1)
+
+
+def check_one_device_function(kernels, memsets, calls, where):
+    """Every qmatmul call ran the wgmma body once: no second device
+    function (qmatmul_kernel_reduce) and no memset."""
+    names = ", ".join(f"{kernel_name_of(k)} x{n}" for k, n in kernels.items())
+    if (any("wgmma" not in k for k in kernels) or memsets
+            or sum(kernels.values()) != calls):
+        raise AssertionError(f"{where}: expected {calls} qmatmul_kernel_wgmma "
+                             f"and no memset, got {names}; {memsets} memsets")
+    print(f"{where}: {calls} qmatmul calls ran {names}, no "
+          f"qmatmul_kernel_reduce, {memsets} memsets")
+
+
+def kernel_name_of(key):
+    """A profiler key's function name, e.g. ``qmatmul_kernel_wgmma<2, 8>``."""
+    m = re.search(r"(\w+(<[^>]*>)?)\(", key)
+    return m.group(1) if m else key[:40]
 
 
 class FlashChecker:
@@ -901,6 +1012,10 @@ def profile_split(fn, calls=3):
                "other_device_ms")
         split[key] += e.self_device_time_total / 1e3 / calls
     split["profiled_wall_ms"] = wall
+    split["qmatmul_kernels"] = {e.key: e.count for e in events
+                                if "qmatmul_kernel" in e.key}
+    split["memsets"] = sum(e.count for e in events
+                           if "memset" in e.key.lower())
     # the largest device entries, ms per call
     split["top"] = [(e.key[:60], e.self_device_time_total / 1e3 / calls)
                     for e in sorted(events, key=lambda e:
@@ -1490,6 +1605,18 @@ def run_serve(dev, model, qmatmul_ops):
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t) * 1e3 / n
     split = profile_split(lambda: steps(1, 40), calls=4)
+    kernels = split["qmatmul_kernels"]
+    body = qmatmul_ops.route(SERVE_BATCH, 11008, 4096, torch.int16,
+                             torch.int8)
+    main = {k: n for k, n in kernels.items() if "reduce" not in k}
+    if (any(("wgmma" in k) != (body == "wgmma") for k in main)
+            or sum(main.values()) != 4 * per_step):
+        raise AssertionError(f"a profiled decode step ran {kernels}, not "
+                             f"{per_step} calls of the {body} body per step")
+    print(f"decode step profile: {4 * per_step} qmatmul calls over 4 steps "
+          f"at batch {SERVE_BATCH}, routed to the {body} body, ran "
+          f"{', '.join(f'{kernel_name_of(k)} x{n}' for k, n in kernels.items())}"
+          f"; {split['memsets']} memsets in the step")
     batcher.pool.release(SERVE_BATCH, SERVE_MAX_LEN, state)
     return dict(launches=launches, decode_steps=decode_steps,
                 step_ms=step_ms, tokens_per_s=SERVE_BATCH * 1e3 / step_ms,
@@ -1705,19 +1832,24 @@ def run_continuous(dev, model, plan, qmatmul_ops, flash_ops, smi):
     out["launches"]["dense"] = row["launches"]
 
     out["micro_run"] = {label: time_micro_run(
-        dev, plan, model, batcher, smi=smi if label == "paged" else None)
+        dev, plan, model, batcher, smi=smi if label == "paged" else None,
+        bodies=label == "paged")
         for label, batcher in (("paged", paged), ("dense", dense))}
     out["waves"], out["loops"] = waves, loops
     return out
 
 
-def time_micro_run(dev, plan, model, batcher, qmatmul=True, smi=None):
+def time_micro_run(dev, plan, model, batcher, qmatmul=True, smi=None,
+                   bodies=False):
     """One micro-run of the batcher's step in steady decode, its state
     resident: every lane active at positions 100-103 (a speculative step
     accepts nothing here; its work per call is the same). Host-clock
     median of 5 calls and the device split of 2, which must show qmatmul
     time where the step launches it (``qmatmul``); with ``smi`` (the
-    card's name and power limit) also the micro-run's roofline line."""
+    card's name and power limit) also the micro-run's roofline line; with
+    ``bodies`` also the qmatmul device time of 2 calls with every call on
+    the mma.sync body and of 2 with every call the wgmma body takes on it,
+    beside the router's, in the same run."""
     k, B, L = CONT_K, CONT_BATCH, CONT_MAX_LEN
     lanes = [torch.full((k, B), -1, dtype=torch.int32, device=dev),
              torch.ones(B, dtype=torch.int32, device=dev), 100,
@@ -1748,6 +1880,18 @@ def time_micro_run(dev, plan, model, batcher, qmatmul=True, smi=None):
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t) * 1e3)
     split = profile_split(micro_run, calls=2)
+    by_body = None
+    if bodies:
+        from repro_torch.kernels.qmatmul import ops
+
+        by_body = {"routed": split["qmatmul_ms"]}
+        for name, m in (("mma.sync", ops.WG_MAX_M + 1), ("wgmma", 1)):
+            routed_from, ops.WG_MIN_M = ops.WG_MIN_M, m
+            try:
+                by_body[name] = profile_split(micro_run, calls=2)[
+                    "qmatmul_ms"]
+            finally:
+                ops.WG_MIN_M = routed_from
     if smi is not None:
         from repro_torch.models import ShapeSpec
 
@@ -1763,7 +1907,7 @@ def time_micro_run(dev, plan, model, batcher, qmatmul=True, smi=None):
         raise AssertionError(f"profiler split of a micro-run disagrees with "
                              f"its qmatmul launches ({qmatmul}): {split}")
     return dict(median_ms=statistics.median(lat), latencies_ms=lat,
-                split=split)
+                split=split, by_body=by_body)
 
 
 def micro_run_line(name, mr):
@@ -1775,7 +1919,10 @@ def micro_run_line(name, mr):
             f"{1 - device_busy_ms(cs) / mr['median_ms']:.3f} of the median "
             f"(profiled wall {cs['profiled_wall_ms']:.4f} ms); largest "
             f"device entries (ms per micro-run) "
-            f"{[(k, round(v, 4)) for k, v in cs['top']]}")
+            f"{[(k, round(v, 4)) for k, v in cs['top']]}"
+            + ("" if mr.get("by_body") is None else
+               "; qmatmul device ms per micro-run by body, same run: "
+               + ", ".join(f"{k} {v:.4f}" for k, v in mr["by_body"].items())))
 
 
 def run_speculative(dev, model, plan, qmatmul_ops, flash_ops, reqs, loop):
@@ -1888,7 +2035,8 @@ def run_speculative(dev, model, plan, qmatmul_ops, flash_ops, reqs, loop):
     out["rows"]["dense"] = counted("dense wave 0, async server", dense,
                                    through_server)
     out["launches"] = {k: r["launches"] for k, r in out["rows"].items()}
-    out["micro_run"] = {label: time_micro_run(dev, plan, model, batcher)
+    out["micro_run"] = {label: time_micro_run(dev, plan, model, batcher,
+                                              bodies=label == "paged")
                         for label, batcher in (("paged", paged),
                                                ("dense", dense))}
     return out
@@ -2002,9 +2150,11 @@ def time_lm_qmatmul(qlinear, qlinear_ref, dev):
     zero-padded to 32 rows (its least M; none at M = 32) as a yardstick for
     the product alone (no SRS); no PyTorch call takes the a16w8 int16
     operands."""
+    from repro_torch.kernels.qmatmul import ops
     from repro_torch.kernels.qmatmul.ops import work
 
     rng = np.random.default_rng(13)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
     for (M, K, N, dx, dw, out) in LM_SHAPES:
         x = torch.from_numpy(_rand(rng, (M, K), dx)).to(dev)
@@ -2017,7 +2167,24 @@ def time_lm_qmatmul(qlinear, qlinear_ref, dev):
         def cold(fn):
             return lambda: fn(ws[next(turn) % n_copies])
 
-        ms = device_ms(cold(lambda w: qlinear(x, w, None, **kw)))
+        body = ops.route(M, K, N, x.dtype, ws[0].dtype)
+        # the body the router did not pick, forced under its own plan
+        other, p = (("mma", ops.plan(M, K, N, sms)) if body == "wgmma" else
+                    ("wgmma", ops.wgmma_plan(M, K, N, sms)))
+
+        def routed(w):
+            return qlinear(x, w, None, **kw)
+
+        def forced(w):
+            return ops.qlinear_planned(x, w, None, p, **kw)
+
+        # in turns: other, routed, routed, other. The routed body's ms is
+        # its first turn, one measurement like the recorded times; the
+        # bodies are compared best turn against best turn
+        t4 = [device_ms(cold(fn)) for fn in (forced, routed, routed, forced)]
+        ms, best, other_ms = t4[1], min(t4[1], t4[2]), min(t4[0], t4[3])
+        # per call, the device functions alone (profiler: no launch gaps)
+        fn_ms = device_function_ms({body: cold(routed), other: cold(forced)})
         plain = device_ms(lambda: qlinear_ref(x, ws[0], None, **kw), iters=10)
         lib, lib_note = None, "no PyTorch call takes int16 x int8 operands"
         if dx == "int8":
@@ -2030,13 +2197,21 @@ def time_lm_qmatmul(qlinear, qlinear_ref, dev):
         wk = work(M, K, N, x.dtype, ws[0].dtype, out, bias=False)
         t, by = bound_ms(wk)
         rows.append(dict(
-            M=M, K=K, N=N, x=dx, w=dw, out=out, ms=ms, plain_ms=plain,
+            M=M, K=K, N=N, x=dx, w=dw, out=out, body=body, ms=ms,
+            best_ms=best, other_body=other, other_ms=other_ms, times_ms=t4,
+            device_function_ms=fn_ms, plain_ms=plain,
             library_ms=lib, library_note=lib_note, l2="cold",
             weight_copies=n_copies, bound_ms=t, bound_by=by,
             ops=wk.ops, bytes=wk.bytes))
         print(f"qmatmul {M}x{K}x{N} {dx}x{dw}->{out}, L2 cold ({n_copies} "
-              f"weight copies): kernel {ms:.6f} ms, bound "
-              f"{t:.6f} ms ({by}), plain "
+              f"weight copies): {body} body {ms:.6f} ms (x{ms / t:.2f} "
+              f"bound); same run, best of 2 turns: {body} {best:.6f} ms, "
+              f"{other} {other_ms:.6f} ms ({p}); device functions per call "
+              f"(profiler): {body} {fn_ms[body]:.6f} ms, {other} "
+              f"{fn_ms[other]:.6f} ms (device functions recorded: "
+              f"{fn_ms.get(body + ' launches')}, "
+              f"{fn_ms.get(other + ' launches')}); bound {t:.6f} ms ({by}), "
+              f"plain "
               f"{plain:.6f} ms (not a yardstick), library "
               f"{'n/a' if lib is None else f'{lib:.6f} ms'} ({lib_note})")
         del ws
@@ -3117,6 +3292,8 @@ def main() -> int:
                for k in ptxas_report(name, log)]
     if any(k.startswith("flash_kernel_wgmma") for k in spilled):
         raise AssertionError(f"the bf16 flash body spills: {spilled}")
+    if any(k.startswith("qmatmul_kernel_wgmma") for k in spilled):
+        raise AssertionError(f"the qmatmul wgmma body spills: {spilled}")
     for name in build.SOURCES:
         build.load(name)
 
@@ -3131,11 +3308,18 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     n_split = check_small_m(chk, dev, sms)
     n_split_lm = check_lm_shapes(chk, dev, sms)
+    n_sweep = check_m_sweep(chk, dev, sms)
     torch.cuda.synchronize()
     print(f"kernel == plain: {chk.cases} cases ({n_grid} grid, path shapes "
           f"{shapes}, wraparound K={wrap_k}, small M {SMALL_M_SHAPES} with "
           f"{n_split} split-K plans, LM shapes {LM_SHAPES} "
-          f"with {n_split_lm} split-K plans), max |diff| {chk.max_abs_err}")
+          f"with {n_split_lm} split-K plans, each routed case beside the "
+          f"mma.sync body's forced plans; the wgmma body forced at M "
+          f"{SWEEP_M} at {SWEEP_SHAPES}: {n_sweep} cases), max |diff| "
+          f"{chk.max_abs_err}")
+    check_one_device_function(*wrapper_profile(ops, dev),
+                              "wrapper profile, a yi-6b verify step's "
+                              "shapes at 32 rows")
 
     # phase 3: the main path, counted from zero
     rng = np.random.default_rng(0)

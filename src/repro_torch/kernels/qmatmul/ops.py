@@ -1,17 +1,25 @@
 """Public wrapper of the qmatmul kernel: dispatch on the tensors' device.
 
 A CPU tensor goes to the plain version (:func:`qlinear_ref`). A CUDA tensor
-goes to the hand-written Hopper kernel in ``csrc/qmatmul.cu``, or the call
-raises: nothing falls back. The kernel masks ragged M, N and K edges itself,
-so no padding happens here. :func:`plan` picks the kernel's output tile and
-its split of K from the shape and the card's SM count.
+goes to one of the two hand-written Hopper bodies in ``csrc/qmatmul.cu``, or
+the call raises: nothing falls back. :func:`route` picks the body: the
+``wgmma`` body (TMA; persistent blocks that take whole tiles round robin
+and share the rest stream-K, the split tiles reduced in the same launch)
+for an int8 w, M from 17 to 64 and aligned rows, the rows the ``mma``
+body would pad to its 64-row tile (the speculative verify step); the
+``mma`` body (``mma.sync``, split-K) for the rest, the decode steps at M
+up to 16 among them, where its 16-row tile pads nothing and it ran as fast
+or faster on the card (PERF.md). :func:`wgmma_plan` sizes the first,
+:func:`plan` the second. Both bodies mask ragged M, N and K edges
+themselves, so no padding happens here.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, NamedTuple, Optional, Tuple
+from collections import OrderedDict
+from typing import List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -29,8 +37,8 @@ from repro_torch.quant.srs import TORCH_DTYPES, VALID_ROUNDING
 
 # Kernel launches since import (or since a caller reset it to 0). Only a
 # launch of the CUDA kernel counts; the plain version on the CPU does not.
-# One call counts once, also when split-K runs it as two device functions
-# (qmatmul_kernel, then qmatmul_kernel_reduce).
+# One call counts once, also when the mma body's split-K runs it as two
+# device functions (qmatmul_kernel, then qmatmul_kernel_reduce).
 launches = 0
 
 # (x dtype, w dtype) pairs and output dtypes the kernel is instantiated for
@@ -53,18 +61,37 @@ _ARGTYPES = [
     ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p,
 ]
+_WG_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p,
+]
 
+# the mma body
 BLOCK_N = 128          # output columns per block
 BLOCK_K = 64           # K per pipeline stage; split boundaries fall on it
 SMALL_M = 16           # M up to this takes the 16-row tile, else 64 rows
 MIN_K_PER_SPLIT = 512  # a split walks at least this much of K
 WAVES = 2              # split K while the tiles fill fewer waves of SMs
 
+# the wgmma body
+WG_BLOCK_N = 128       # w columns per unit (two m64 products)
+WG_BLOCK_K = 128       # K per unit (one 128-byte swizzle row of int8 x)
+WG_MAX_M = 64          # the body takes M up to this
+# the router sends it M from this up (below, the mma body's 16-row tile
+# pads nothing); chip_smoke.py sets it to 1 or 65 to time either body alone
+WG_MIN_M = SMALL_M + 1
+WG_WIDTHS = (8, 16, 24, 32, 48, 64)  # the token widths integer wgmma takes
+WG_SLOT = WG_MAX_M * WG_BLOCK_N      # uint32 partials of one split tile
+
 
 class Plan(NamedTuple):
-    """How the kernel tiles one call: ``block_m`` output rows per block and
-    ``splits`` ranges of K, each ``k_per_split`` long (the last one may be
-    shorter)."""
+    """How the mma body tiles one call: ``block_m`` output rows per block
+    and ``splits`` ranges of K, each ``k_per_split`` long (the last one may
+    be shorter)."""
     block_m: int
     splits: int
     k_per_split: int
@@ -92,8 +119,8 @@ def _work_of(x: torch.Tensor, w: torch.Tensor, bias, out_dtype: str) -> Work:
 
 
 def plan(M: int, K: int, N: int, sms: int) -> Plan:
-    """The tile and split-K plan for an (M, K) x (K, N) call on a card with
-    ``sms`` SMs.
+    """The mma body's tile and split-K plan for an (M, K) x (K, N) call on
+    a card with ``sms`` SMs.
 
     Split K only when the (M, N) tiles give fewer than ``WAVES`` waves of
     blocks, and never below ``MIN_K_PER_SPLIT`` of K per split. Split
@@ -110,6 +137,74 @@ def plan(M: int, K: int, N: int, sms: int) -> Plan:
     return Plan(block_m, _cdiv(K, k_per_split), k_per_split)
 
 
+class WgPlan(NamedTuple):
+    """How the wgmma body walks one call: products ``nt`` tokens wide, the
+    work cut into ``units`` (``tiles`` column tiles of ``WG_BLOCK_N`` x
+    ``k_blocks`` blocks of ``WG_BLOCK_K``), and ``grid`` persistent blocks
+    that share them as :func:`wgmma_walk` says."""
+    nt: int
+    k_blocks: int
+    tiles: int
+    units: int
+    grid: int
+
+
+def wgmma_takes(M: int, K: int, N: int, x_dtype: torch.dtype,
+                w_dtype: torch.dtype, aligned: bool = True) -> bool:
+    """Whether the wgmma body can serve an (M, K) x (K, N) call: an int8 w,
+    an int8 or int16 x, 1 <= M <= ``WG_MAX_M``, K >= 1 and TMA's 16-byte
+    rule (``aligned``: both base addresses 16-byte aligned; rows of x and
+    of w a multiple of 16 bytes)."""
+    return (w_dtype == torch.int8 and x_dtype in (torch.int8, torch.int16)
+            and 1 <= M <= WG_MAX_M and K >= 1 and aligned
+            and K * x_dtype.itemsize % 16 == 0 and N % 16 == 0)
+
+
+def route(M: int, K: int, N: int, x_dtype: torch.dtype,
+          w_dtype: torch.dtype, aligned: bool = True) -> str:
+    """The body that serves an (M, K) x (K, N) call: ``"wgmma"`` where
+    :func:`wgmma_takes` holds and M >= ``WG_MIN_M``; ``"mma"`` for every
+    other call."""
+    if M >= WG_MIN_M and wgmma_takes(M, K, N, x_dtype, w_dtype, aligned):
+        return "wgmma"
+    return "mma"
+
+
+def wgmma_plan(M: int, K: int, N: int, sms: int) -> WgPlan:
+    """The wgmma body's plan for an (M, K) x (K, N) call on ``sms`` SMs:
+    the narrowest product that holds M tokens, and one persistent block per
+    SM or per unit, whichever is fewer."""
+    if not 1 <= M <= WG_MAX_M:
+        raise ValueError(f"the wgmma body takes 1 <= M <= {WG_MAX_M}, got "
+                         f"{M}")
+    nt = next(n for n in WG_WIDTHS if n >= M)
+    k_blocks, tiles = _cdiv(K, WG_BLOCK_K), _cdiv(N, WG_BLOCK_N)
+    units = k_blocks * tiles
+    return WgPlan(nt, k_blocks, tiles, units, max(1, min(sms, units)))
+
+
+def wgmma_walk(p: WgPlan, block: int) -> List[Tuple[int, int]]:
+    """The (tile, k block) units that block ``block`` of ``p`` walks, in
+    its order, as the kernel's ``Walk`` computes them.
+
+    The first ``tiles // grid * grid`` tiles are whole tiles dealt round
+    robin (block b takes b, b + grid, ...). The remaining tiles (fewer
+    than ``grid``) are shared stream-K: their units in tile-major order,
+    block b taking [u0, u1) with u0 = floor(b * units_left / grid), so a
+    share is shorter than a tile and touches at most two. A block walks
+    its stream-K share first, then its whole tiles.
+    """
+    k = p.k_blocks
+    rounds = p.tiles // p.grid
+    sk_base = rounds * p.grid * k
+    sk_units = p.units - sk_base
+    u0 = sk_base + block * sk_units // p.grid
+    u1 = sk_base + (block + 1) * sk_units // p.grid
+    whole = [(block + p.grid * r) * k + kb for r in range(rounds)
+             for kb in range(k)]
+    return [divmod(u, k) for u in list(range(u0, u1)) + whole]
+
+
 def split_ranges(p: Plan, K: int) -> List[Tuple[int, int]]:
     """The [lo, hi) range of K that each split of ``p`` sums."""
     return [(s * p.k_per_split, min(K, (s + 1) * p.k_per_split))
@@ -123,11 +218,42 @@ def _sm_count(index: int) -> int:
 
 def _library() -> ctypes.CDLL:
     lib = build.load("qmatmul")
-    fn = lib.qmatmul_launch
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
+    for fn, argtypes in ((lib.qmatmul_launch, _ARGTYPES),
+                         (lib.qmatmul_wgmma_launch, _WG_ARGTYPES)):
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
+
+
+# (device index, stream handle) -> the wgmma body's workspace: per SM one
+# slot of WG_SLOT uint32 partials, then one counter per slot (4.3 MB on an
+# H100). Zeroed once when made; every launch leaves it zero, so no call
+# clears it. The most recently used _MAX_WORKSPACES are kept. One that is
+# dropped goes back to the caching allocator on the stream it was made on,
+# so a launch still in flight there keeps its memory. PyTorch's own streams
+# come from a pool and are never destroyed, so their handles name one
+# stream for the process's life; a caller that destroys a stream of its
+# own must let its launches finish first.
+_workspaces: "OrderedDict[Tuple[int, int], torch.Tensor]" = OrderedDict()
+_MAX_WORKSPACES = 8
+
+
+def _workspace(device: torch.device, stream: int, slots: int) -> torch.Tensor:
+    key = (device.index, stream)
+    ws = _workspaces.get(key)
+    if ws is None:
+        ws = torch.zeros(slots * (WG_SLOT + 1), dtype=torch.int32,
+                         device=device)
+        _workspaces[key] = ws
+        while len(_workspaces) > _MAX_WORKSPACES:
+            _workspaces.popitem(last=False)
+    _workspaces.move_to_end(key)
+    return ws
+
+
+def _aligned(x: torch.Tensor, w: torch.Tensor) -> bool:
+    return x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
 
 
 def _check(x, w, bias, shift, out_dtype, rounding) -> None:
@@ -179,7 +305,8 @@ def qlinear(
 
     Bit-exact against :func:`qlinear_ref`. ``block`` and ``acc_blocks``
     are accepted for compatibility with the reference's signature and
-    ignored: the CUDA kernel's tiling comes from :func:`plan`. Raises if
+    ignored: the CUDA kernel's body and tiling come from :func:`route`,
+    :func:`wgmma_plan` and :func:`plan`. Raises if
     an input requires grad while grad is enabled (the kernel has no
     backward). DTensor operands are gathered and the kernel (its plain
     version on the CPU) runs once on the whole operands (see
@@ -207,41 +334,64 @@ def qlinear(
 
 
 def qlinear_planned(x: torch.Tensor, w: torch.Tensor,
-                    bias: Optional[torch.Tensor], p: Optional[Plan], *,
+                    bias: Optional[torch.Tensor],
+                    p: Union[Plan, WgPlan, None], *,
                     shift: int, relu: bool = False, out_dtype: str = "int8",
                     rounding: str = "half_up") -> torch.Tensor:
-    """The CUDA kernel under plan ``p``, or under :func:`plan`'s for the
-    shape and card if ``p`` is None (what :func:`qlinear` does). Tests pass
-    a plan to run one shape with and without split-K."""
+    """The CUDA kernel: with ``p`` None the body :func:`route` picks for
+    the call, under its own plan (what :func:`qlinear` does); with a
+    :class:`Plan` the ``mma`` body under ``p``, and with a :class:`WgPlan`
+    the ``wgmma`` body under ``p``, whatever the route (tests hold each
+    body at every shape it takes this way). A WgPlan for a call the wgmma
+    body cannot serve (:func:`wgmma_takes`) raises."""
     global launches
     _check(x, w, bias, shift, out_dtype, rounding)
     M, K = x.shape
     N = w.shape[1]
-    if p is None:
-        p = plan(M, K, N, _sm_count(x.device.index
-                                    if x.device.index is not None
-                                    else torch.cuda.current_device()))
     y = torch.empty((M, N), dtype=TORCH_DTYPES[out_dtype], device=x.device)
     if M == 0 or N == 0:
         return y
-    if _cdiv(M, p.block_m) > _MAX_GRID_YZ or p.splits > _MAX_GRID_YZ:
+    index = (x.device.index if x.device.index is not None
+             else torch.cuda.current_device())
+    if isinstance(p, WgPlan):
+        if not wgmma_takes(M, K, N, x.dtype, w.dtype, _aligned(x, w)):
+            raise ValueError(f"the wgmma body cannot serve {M}x{K}x{N} "
+                             f"{x.dtype} x {w.dtype} (or unaligned rows)")
+        wgmma = True
+    else:
+        wgmma = p is None and route(M, K, N, x.dtype, w.dtype,
+                                    _aligned(x, w)) == "wgmma"
+    if p is None and not wgmma:
+        p = plan(M, K, N, _sm_count(index))
+    if not wgmma and (_cdiv(M, p.block_m) > _MAX_GRID_YZ
+                      or p.splits > _MAX_GRID_YZ):
         raise ValueError(f"qmatmul kernel grid too large for M={M} under "
                          f"{p}")
     with reported("qmatmul", _work_of(x, w, bias, out_dtype)):
-        ws = (torch.empty((p.splits, M, N), dtype=torch.int32,
-                          device=x.device) if p.splits > 1 else None)
         lib = _library()
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        bias_ptr = None if bias is None else bias.data_ptr()
         with torch.cuda.device(x.device):
-            err = lib.qmatmul_launch(
-                x.data_ptr(), w.data_ptr(),
-                None if bias is None else bias.data_ptr(), y.data_ptr(),
-                None if ws is None else ws.data_ptr(),
-                M, K, N,
-                _BITS[x.dtype], _BITS[w.dtype], _BITS[y.dtype],
-                shift, VALID_ROUNDING.index(rounding), int(relu),
-                p.block_m, p.splits, p.k_per_split,
-                torch.cuda.current_stream(x.device).cuda_stream,
-            )
+            if wgmma:
+                sms = _sm_count(index)
+                wp = p if p is not None else wgmma_plan(M, K, N, sms)
+                ws = _workspace(x.device, stream, sms)
+                err = lib.qmatmul_wgmma_launch(
+                    x.data_ptr(), w.data_ptr(), bias_ptr, y.data_ptr(),
+                    ws.data_ptr(), ws.data_ptr() + 4 * sms * WG_SLOT, sms,
+                    M, K, N, _BITS[x.dtype], _BITS[y.dtype],
+                    shift, VALID_ROUNDING.index(rounding), int(relu),
+                    wp.nt, wp.grid, stream)
+            else:
+                ws = (torch.empty((p.splits, M, N), dtype=torch.int32,
+                                  device=x.device) if p.splits > 1 else None)
+                err = lib.qmatmul_launch(
+                    x.data_ptr(), w.data_ptr(), bias_ptr, y.data_ptr(),
+                    None if ws is None else ws.data_ptr(),
+                    M, K, N,
+                    _BITS[x.dtype], _BITS[w.dtype], _BITS[y.dtype],
+                    shift, VALID_ROUNDING.index(rounding), int(relu),
+                    p.block_m, p.splits, p.k_per_split, stream)
         if err != 0:
             raise RuntimeError(
                 f"qmatmul kernel launch failed: CUDA error {err}")

@@ -883,3 +883,188 @@ def test_sharded_model_through_both_kernels_on_the_card_mesh(cuda):
     assert torch.equal(got.full_tensor(), fwd)
     for a, b in zip(got_steps, steps):
         assert torch.equal(a.full_tensor(), b)
+
+
+# ---------------------------------------------------------------------------
+# the wgmma body (int8 w, M <= 64, aligned rows): ops.qlinear routes M 17-64
+# to it; these tests force it at every M with its own WgPlan
+# ---------------------------------------------------------------------------
+
+# (K, N, x dtype): the LM shapes, ragged N (151,936; 32,064), K that is not
+# a multiple of the body's 128-deep units, and the vlm's down-projection,
+# whose 108-unit segments let the two consumer warpgroups drift furthest
+# apart (an odd ring of stages once gave wrong sums there at M = 33)
+_WGMMA_SHAPES = [(4096, 64000, "int8"), (11008, 4096, "int16"),
+                 (2560, 151936, "int8"), (4096, 32064, "int8"),
+                 (6912, 2560, "int16"), (11000, 2560, "int16"),
+                 (4112, 4096, "int8"), (28672, 8192, "int16")]
+_WGMMA_M = (1, 4, 8, 17, 24, 32, 33, 64)
+
+
+def _wgmma(x, w, b, **kw):
+    """The wgmma body, forced under its own plan."""
+    M, K = x.shape
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return ops.qlinear_planned(x, w, b, ops.wgmma_plan(M, K, w.shape[1], sms),
+                               **kw)
+
+
+def _qmatmul_events(fn):
+    """Device functions and memsets that ``fn`` runs, by name and count
+    (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    return ({k: n for k, n in kernels.items() if "qmatmul" in k},
+            sum(n for k, n in kernels.items() if "memset" in k.lower()))
+
+
+@pytest.mark.parametrize("K,N,dt_x", _WGMMA_SHAPES)
+def test_qmatmul_wgmma_m_sweep_equals_plain(cuda, K, N, dt_x):
+    """M 1-64 at the LM shapes on the wgmma body (forced) and through the
+    router (the wgmma body above M = 16, mma.sync below), full int16 range,
+    torch.equal to the plain version, one launch each."""
+    rng = np.random.default_rng(K + N)
+    w = _rand(rng, (K, N), "int8", cuda)
+    lo = -(2 ** 15) if dt_x == "int16" else -128
+    for M in _WGMMA_M:
+        body = "wgmma" if M > ops.SMALL_M else "mma"
+        assert ops.route(M, K, N, getattr(torch, dt_x), torch.int8) == body
+        x = torch.from_numpy(rng.integers(lo, -lo, (M, K)).astype(dt_x)).to(
+            cuda)
+        kw = dict(shift=9, out_dtype="int16")
+        want = qlinear_ref(x, w, None, **kw)
+        for call in (_wgmma, ops.qlinear):
+            before = ops.launches
+            got = call(x, w, None, **kw)
+            assert ops.launches == before + 1
+            assert torch.equal(got, want), (M, call.__name__)
+
+
+def test_qmatmul_wgmma_int16_sum_wraps(cuda):
+    """int16 x near +-32767 against int8 w near +-127 at K = 11008: the
+    int32 sum wraps, and the wgmma body's two byte planes keep its bits."""
+    rng = np.random.default_rng(3)
+    M, K, N = 32, 11008, 4096
+    x = (rng.choice([-1, 1], (M, 1))
+         * rng.integers(32700, 32768, (M, K))).astype(np.int16)
+    w = (rng.choice([-1, 1], (1, N))
+         * rng.integers(120, 128, (K, N))).astype(np.int8)
+    assert np.abs(x[:1].astype(np.float64) @ w.astype(np.float64)).max() \
+        > 2 ** 31
+    xt, wt = torch.from_numpy(x).to(cuda), torch.from_numpy(w).to(cuda)
+    for shift in (0, 7, 12):
+        kw = dict(shift=shift, out_dtype="int16")
+        assert torch.equal(ops.qlinear(xt, wt, None, **kw),
+                           qlinear_ref(xt, wt, None, **kw))
+
+
+@pytest.mark.parametrize("dt_x", ["int8", "int16"])
+def test_qmatmul_wgmma_bias_relu_outputs_roundings(cuda, dt_x):
+    """Bias near the int32 limits, ReLU on and off, int8 and int16
+    outputs and all three roundings, on the wgmma body."""
+    rng = np.random.default_rng(11)
+    M, K, N = 8, 4096, 4096
+    lo = -(2 ** 15) if dt_x == "int16" else -128
+    x = torch.from_numpy(rng.integers(lo, -lo, (M, K)).astype(dt_x)).to(cuda)
+    w = _rand(rng, (K, N), "int8", cuda)
+    b = torch.from_numpy(rng.integers(-(2 ** 31), 2 ** 31, (N,)).astype(
+        np.int32)).to(cuda)
+    for out in ("int8", "int16"):
+        for rounding in ("floor", "half_up", "half_even"):
+            for relu in (False, True):
+                kw = dict(shift=11, relu=relu, out_dtype=out,
+                          rounding=rounding)
+                assert torch.equal(_wgmma(x, w, b, **kw),
+                                   qlinear_ref(x, w, b, **kw)), kw
+
+
+def test_qmatmul_wgmma_one_device_function_per_call(cuda):
+    """A routed call at M = 32, and a forced WgPlan at M = 8, counts one
+    launch and runs one device function, the wgmma body, with no reduce
+    kernel and no memset (the workspace stays zero between calls); a forced
+    Plan still runs the mma.sync body."""
+    rng = np.random.default_rng(5)
+    x = _rand(rng, (32, 11008), "int16", cuda)
+    w = _rand(rng, (11008, 4096), "int8", cuda)
+    kw = dict(shift=7, out_dtype="int16")
+    before = ops.launches
+    kernels, memsets = _qmatmul_events(
+        lambda: [ops.qlinear(x, w, None, **kw) for _ in range(3)])
+    assert ops.launches == before + 6      # 3 warm-up calls, 3 profiled
+    assert memsets == 0
+    assert len(kernels) == 1
+    (name, count), = kernels.items()
+    assert "qmatmul_kernel_wgmma" in name and count == 3
+    x8 = x[:8].contiguous()
+    kernels, memsets = _qmatmul_events(lambda: _wgmma(x8, w, None, **kw))
+    assert memsets == 0 and len(kernels) == 1
+    (name, count), = kernels.items()
+    assert "qmatmul_kernel_wgmma" in name and count == 1
+    p = ops.plan(32, 11008, 4096, torch.cuda.get_device_properties(0)
+                 .multi_processor_count)
+    kernels, _ = _qmatmul_events(
+        lambda: ops.qlinear_planned(x, w, None, p, **kw))
+    assert kernels and not any("wgmma" in k for k in kernels)
+    assert any("qmatmul_kernel_reduce" in k for k in kernels)
+
+
+def test_qmatmul_wgmma_plan_refuses_what_the_body_cannot_serve(cuda):
+    """A WgPlan forced on a call the wgmma body cannot take (int16 w, rows
+    that break TMA's 16-byte rule) raises before any launch."""
+    rng = np.random.default_rng(4)
+    p = ops.wgmma_plan(8, 4096, 4096, 132)
+    for x, w in ((_rand(rng, (8, 4096), "int16", cuda),
+                  _rand(rng, (4096, 4096), "int16", cuda)),
+                 (_rand(rng, (8, 4100), "int8", cuda),
+                  _rand(rng, (4100, 4096), "int8", cuda))):
+        before = ops.launches
+        with pytest.raises(ValueError, match="wgmma body cannot serve"):
+            ops.qlinear_planned(x, w, None, p, shift=7)
+        assert ops.launches == before
+
+
+def test_qmatmul_wgmma_workspace_reuse_and_two_streams(cuda):
+    """Back-to-back calls of different shapes reuse one cached workspace
+    per (device, stream) and leave it zero; calls on two streams at once
+    use a workspace each and stay exact."""
+    rng = np.random.default_rng(9)
+    shapes = [(32, 11008, 4096, "int16"), (8, 4096, 32064, "int8"),
+              (4, 6912, 2560, "int16"), (64, 2560, 4096, "int8")]
+    cases = []
+    for M, K, N, dt_x in shapes:
+        lo = -(2 ** 15) if dt_x == "int16" else -128
+        x = torch.from_numpy(rng.integers(lo, -lo, (M, K)).astype(dt_x)).to(
+            cuda)
+        cases.append((x, _rand(rng, (K, N), "int8", cuda)))
+    kw = dict(shift=8, out_dtype="int16")
+    want = [qlinear_ref(x, w, None, **kw) for x, w in cases]
+    for _ in range(3):
+        got = [_wgmma(x, w, None, **kw) for x, w in cases]
+        assert all(torch.equal(g, e) for g, e in zip(got, want))
+    key = (torch.cuda.current_device(), torch.cuda.current_stream().cuda_stream)
+    ws = ops._workspaces[key]
+    torch.cuda.synchronize()
+    assert not ws.any()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = [[], []]
+    for s, out in zip(streams, outs):
+        s.wait_stream(torch.cuda.current_stream())
+    for _ in range(4):
+        for s, out in zip(streams, outs):
+            with torch.cuda.stream(s):
+                out.append([_wgmma(x, w, None, **kw) for x, w in cases])
+    torch.cuda.synchronize()
+    for s in streams:
+        assert (torch.cuda.current_device(), s.cuda_stream) in ops._workspaces
+        assert not ops._workspaces[(torch.cuda.current_device(),
+                                    s.cuda_stream)].any()
+    for out in outs:
+        for got in out:
+            assert all(torch.equal(g, e) for g, e in zip(got, want))

@@ -283,3 +283,329 @@ def test_split_k_partials_sum_to_the_whole(M, K, N):
     for lo, hi in ops.split_ranges(p, K):
         acc = _mod32(acc + _byte_split_product(x[:, lo:hi], w[lo:hi]))
     assert torch.equal(acc, whole)
+
+
+# --- the wgmma body: its data layout and its stream-K walk ----------------
+
+def _swz(r, b):
+    """Byte offset of (row, byte) in a tile of 128-byte rows under the
+    TMA's 128-byte swizzle (the kernel's ``swz``)."""
+    return r * 128 + ((((b >> 4) ^ r) & 7) << 4) + (b & 15)
+
+
+def _tma_box(rows_bytes, r0, c0, n_rows):
+    """A TMA box of ``n_rows`` x 128 bytes at (row r0, byte c0) of a 2-D
+    uint8 array, zero past its edges, as it lands in shared memory."""
+    box = np.zeros((n_rows, 128), np.uint8)
+    part = rows_bytes[r0:r0 + n_rows, c0:c0 + 128]
+    box[:part.shape[0], :part.shape[1]] = part
+    smem = np.zeros(n_rows * 128, np.uint8)
+    r, b = np.meshgrid(np.arange(n_rows), np.arange(128), indexing="ij")
+    smem[_swz(r, b)] = box
+    return smem
+
+
+def _split_planes(raw, nt):
+    """The kernel's ``split_planes``: an int16 x tile (two boxes of 64
+    columns) into its high and low byte planes, both swizzled."""
+    hi = np.zeros(nt * 128, np.uint8)
+    lo = np.zeros(nt * 128, np.uint8)
+    for it in range(nt * 8):
+        m, c = it >> 3, it & 7
+        row = (c >> 2) * nt * 128
+        src = np.concatenate([raw[row + _swz(m, 32 * (c & 3) + h * 16):][:16]
+                              for h in (0, 1)])
+        hi[_swz(m, 16 * c):][:16] = src[1::2]
+        lo[_swz(m, 16 * c):][:16] = src[0::2]
+    return hi, lo
+
+
+def _unit_product(w_smem, b_plane, b_signed, nt):
+    """One unit's two m64 x nt x k128 products as the consumer warpgroup
+    forms them, mapped back to (token, column) by the epilogue's inverse of
+    the transpose's permutation; int64, not yet reduced modulo 2^32.
+
+    Thread (warp, g, t) reads rows 32s + 16q + 4t + i of columns
+    32 warp + 4g .. + 3, transposes, and holds column 4g + 2p + h as row
+    g + 8h (warp's 16-row slab) of product p, k 4t + 16q + i of step s."""
+    warp, g, t, s, q, i = np.meshgrid(*(np.arange(n) for n in
+                                        (4, 8, 4, 4, 2, 4)), indexing="ij")
+    out = np.zeros((nt, 128), np.int64)
+    # B: x^T, K-major from the plane, k32 step s at byte 32 s of each row
+    m, k = np.meshgrid(np.arange(nt), np.arange(128), indexing="ij")
+    bmat = b_plane[_swz(m, k)].astype(np.int64)
+    if b_signed:
+        bmat = np.where(bmat >= 128, bmat - 256, bmat)
+    for p in range(2):
+        for h in range(2):
+            a = np.zeros((64, 128), np.int64)
+            byte = w_smem[_swz(32 * s + 16 * q + 4 * t + i,
+                               32 * warp + 4 * g) + 2 * p + h]
+            val = np.where(byte >= 128, byte.astype(np.int64) - 256, byte)
+            a[16 * warp + g + 8 * h, 32 * s + 4 * t + 16 * q + i] = val
+            d = a @ bmat.T                        # [64 rows, nt tokens]
+            rows = np.arange(64).reshape(4, 2, 8)[:, h, :].reshape(-1)
+            cols = (32 * np.arange(4)[:, None] + 4 * np.arange(8)[None, :]
+                    + 2 * p + h).reshape(-1)
+            out[:, cols] = d[rows].T
+    return out
+
+
+def _segments(walk):
+    """A block's walk as runs of one tile: (tile, [(position, k block)])."""
+    segs = []
+    for pos, (tile, kb) in enumerate(walk):
+        if not segs or segs[-1][0] != tile:
+            segs.append((tile, []))
+        segs[-1][1].append((pos, kb))
+    return segs
+
+
+def _emulate_wgmma(x, w, b, sms, *, shift, relu=False, out_dtype="int8",
+                   rounding="half_up", seed=0):
+    """The wgmma body, unit by unit: TMA boxes, the byte planes of an int16
+    x, the swap-AB products, each block's walk (``ops.wgmma_walk``) with
+    its two consumer warpgroups taking alternate positions and adding
+    their parts at each segment's end, and the fixup of split tiles: every
+    part is added to its slot in a shuffled order modulo 2^32, and the
+    part that brings the slot's counter to the tile's k blocks finishes
+    the tile and leaves the slot zero."""
+    from repro_torch.quant.srs import srs
+
+    M, K = x.shape
+    N = w.shape[1]
+    p = ops.wgmma_plan(M, K, N, sms)
+    nt, k = p.nt, p.k_blocks
+    xb = x.numpy().view(np.uint8).reshape(M, -1)
+    wb = w.numpy().view(np.uint8)
+    wide = x.dtype == torch.int16
+
+    def product(tile, kb):
+        w_smem = _tma_box(wb, kb * 128, tile * 128, 128)
+        if wide:
+            raw = np.concatenate([_tma_box(xb, 0, kb * 256 + 128 * h, nt)
+                                  for h in (0, 1)])
+            hi, lo = _split_planes(raw, nt)
+            return ((_unit_product(w_smem, hi, True, nt) << 8)
+                    + _unit_product(w_smem, lo, False, nt))
+        return _unit_product(w_smem, _tma_box(xb, 0, kb * 128, nt), True, nt)
+
+    sk_base = p.tiles // p.grid * p.grid
+    sk_units = p.units - sk_base * k
+    ws = np.zeros((p.grid, nt, 128), np.int64)
+    counters = np.zeros(p.grid, np.int64)
+    acc = np.zeros((M, p.tiles * 128), np.int64)
+    parts = []                                     # (tile, slot, kbs, sum)
+    for blk in range(p.grid):
+        segs = _segments(ops.wgmma_walk(p, blk))
+        for j, (tile, units) in enumerate(segs):
+            kbs = [kb for _, kb in units]
+            assert kbs == list(range(kbs[0], kbs[0] + len(kbs)))
+            consumer = [np.zeros((nt, 128), np.int64) for _ in (0, 1)]
+            for pos, kb in units:
+                consumer[pos % 2] = (consumer[pos % 2]
+                                     + product(tile, kb)) & 0xFFFFFFFF
+            seg = (consumer[1] + consumer[0]) & 0xFFFFFFFF
+            if len(kbs) == k:
+                acc[:, tile * 128:][:, :128] = seg[:M]
+                continue
+            # only stream-K parts are split, and a block walks them first
+            assert tile >= sk_base and j <= 1
+            slot = ((tile - sk_base) * k + 1) * p.grid - 1
+            slot //= sk_units
+            assert slot <= blk
+            parts.append((tile, slot, len(kbs), seg))
+    rng = np.random.default_rng(seed)
+    finished = []
+    for j in rng.permutation(len(parts)):
+        tile, slot, kbs, part = parts[j]
+        ws[slot] = (ws[slot] + part) & 0xFFFFFFFF
+        counters[slot] += kbs
+        if counters[slot] == k:                   # the last part finishes
+            acc[:, tile * 128:][:, :128] = ws[slot][:M]
+            ws[slot] = 0
+            counters[slot] = 0
+            finished.append(tile)
+    assert len(finished) == len(set(finished))
+    assert not ws.any() and not counters.any()   # the workspace stays zero
+    acc = acc[:, :N]
+    if b is not None:
+        acc = (acc + b.numpy().astype(np.int64)[None, :]) & 0xFFFFFFFF
+    acc = torch.from_numpy(np.where(acc >= 2**31, acc - 2**32, acc)
+                           .astype(np.int32))
+    y = srs(acc, shift, out_dtype, rounding)
+    return torch.clamp(y, min=0) if relu else y
+
+
+_WG_CASES = [  # M, K, N, x dtype, SMs: ragged N and K, split tiles and
+    # round-robin whole tiles
+    (1, 128, 128, "int8", 1),
+    (4, 304, 160, "int8", 3),
+    (8, 512, 256, "int16", 5),
+    (17, 256, 384, "int8", 4),
+    (24, 136, 144, "int16", 2),
+    (32, 640, 128, "int16", 3),
+    (33, 384, 272, "int8", 7),
+    (64, 200, 48, "int16", 2),
+    (8, 384, 1008, "int8", 3),
+    (16, 256, 1280, "int16", 4),
+]
+
+
+@pytest.mark.parametrize("M,K,N,dt_a,sms", _WG_CASES)
+def test_wgmma_body_emulation_is_bit_exact(M, K, N, dt_a, sms):
+    """The wgmma body's layout and walk == both plain versions, full int16
+    range (so the int32 sum wraps), bias near the int32 limits, every
+    rounding and both outputs."""
+    assert ops.wgmma_takes(M, K, N, getattr(torch, dt_a), torch.int8)
+    rng = np.random.default_rng(M * 31 + K + N)
+    lo = -(2**15) if dt_a == "int16" else -128
+    x = rng.integers(lo, -lo, (M, K)).astype(dt_a)
+    w = rng.integers(-128, 128, (K, N)).astype(np.int8)
+    b = rng.integers(-(2**31), 2**31, (N,)).astype(np.int32)
+    tx, tw, tb = (torch.from_numpy(a) for a in (x, w, b))
+    for out_dtype, rounding, shift, bias in (
+            ("int8", "half_up", 9, tb), ("int16", "floor", 3, None),
+            ("int16", "half_even", 12, tb)):
+        kw = dict(shift=shift, relu=out_dtype == "int8", out_dtype=out_dtype,
+                  rounding=rounding)
+        got = _emulate_wgmma(tx, tw, bias, sms, seed=M + shift, **kw)
+        want = np.asarray(jax_ref(jnp.asarray(x), jnp.asarray(w),
+                                  None if bias is None else jnp.asarray(b),
+                                  **kw))
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert torch.equal(got, qlinear_ref(tx, tw, bias, **kw))
+
+
+def test_wgmma_body_emulation_agrees_with_interpret_mode():
+    """The emulated wgmma body == the JAX Pallas kernel (interpret mode)
+    on a split walk with ragged N."""
+    rng = np.random.default_rng(2)
+    x = rng.integers(-128, 128, (17, 256)).astype(np.int8)
+    w = rng.integers(-128, 128, (256, 144)).astype(np.int8)
+    b = rng.integers(-(2**16), 2**16, (144,)).astype(np.int32)
+    want = np.asarray(jax_qlinear(jnp.asarray(x), jnp.asarray(w),
+                                  jnp.asarray(b), shift=7, relu=True,
+                                  interpret=True))
+    got = _emulate_wgmma(torch.from_numpy(x), torch.from_numpy(w),
+                         torch.from_numpy(b), 3, shift=7, relu=True)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("M", [1, 4, 8, 9, 17, 24, 25, 32, 33, 48, 49, 64])
+def test_wgmma_plan_takes_the_narrowest_width(M):
+    p = ops.wgmma_plan(M, 4096, 4096, 132)
+    assert p.nt in ops.WG_WIDTHS and p.nt >= M
+    assert all(n < M for n in ops.WG_WIDTHS if n < p.nt)
+
+
+@pytest.mark.parametrize("K,N", [(128, 128), (11008, 4096), (4096, 64000),
+                                 (2560, 151936), (4096, 32064), (136, 16),
+                                 (384, 1008), (28672, 8192)])
+@pytest.mark.parametrize("sms", [132, 7, 1])
+def test_wgmma_walk_takes_every_unit_once(K, N, sms):
+    """Every unit belongs to exactly one block's walk, the walks differ by
+    at most one unit, the grid is at most the SM count, only a block's
+    first two segments are parts of split tiles, and a split tile's slot
+    (its first block) belongs to no other split tile."""
+    p = ops.wgmma_plan(8, K, N, sms)
+    assert p.k_blocks == -(-K // ops.WG_BLOCK_K)
+    assert p.tiles == -(-N // ops.WG_BLOCK_N)
+    assert p.units == p.k_blocks * p.tiles
+    assert 1 <= p.grid <= sms and p.grid <= p.units
+    walks = [ops.wgmma_walk(p, b) for b in range(p.grid)]
+    units = [u for walk in walks for u in walk]
+    assert len(units) == p.units == len(set(units))
+    assert set(units) == {(t, kb) for t in range(p.tiles)
+                          for kb in range(p.k_blocks)}
+    sizes = [len(walk) for walk in walks]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+    owners = {}
+    for b, walk in enumerate(walks):
+        for j, (tile, seg) in enumerate(_segments(walk)):
+            if len(seg) < p.k_blocks:
+                assert j <= 1
+            owners.setdefault(tile, []).append(b)
+    sk_base = p.tiles // p.grid * p.grid
+    sk_units = p.units - sk_base * p.k_blocks
+    slots = set()
+    for tile, blocks in owners.items():
+        assert len(blocks) == len(set(blocks))
+        if len(blocks) > 1:
+            slot = ((tile - sk_base) * p.k_blocks + 1) * p.grid - 1
+            assert slot // sk_units == min(blocks)
+            assert min(blocks) not in slots
+            slots.add(min(blocks))
+
+
+def test_wgmma_plan_of_the_lm_shapes():
+    """The decode shapes on an H100 (132 SMs): one block per SM, 16 to
+    180 units of 16 KB of w each."""
+    assert ops.wgmma_plan(32, 11008, 4096, 132) == ops.WgPlan(
+        32, 86, 32, 2752, 132)
+    assert ops.wgmma_plan(4, 4096, 64000, 132) == ops.WgPlan(
+        8, 32, 500, 16000, 132)
+    assert ops.wgmma_plan(8, 6912, 2560, 132) == ops.WgPlan(
+        8, 54, 20, 1080, 132)
+    assert ops.wgmma_plan(1, 128, 128, 132).grid == 1
+    with pytest.raises(ValueError):
+        ops.wgmma_plan(65, 128, 128, 132)
+
+
+@pytest.mark.parametrize("M,K,N,dt_x,dt_w,aligned,body", [
+    (4, 11008, 4096, torch.int16, torch.int8, True, "mma"),     # M <= 16
+    (8, 4096, 64000, torch.int8, torch.int8, True, "mma"),
+    (16, 11008, 4096, torch.int16, torch.int8, True, "mma"),
+    (17, 11008, 4096, torch.int16, torch.int8, True, "wgmma"),
+    (32, 4096, 64000, torch.int8, torch.int8, True, "wgmma"),
+    (1, 512, 512, torch.int8, torch.int8, True, "mma"),
+    (64, 4096, 32064, torch.int8, torch.int8, True, "wgmma"),
+    (65, 4096, 4096, torch.int8, torch.int8, True, "mma"),      # M > 64
+    (128, 512, 256, torch.int8, torch.int8, True, "mma"),
+    (8, 4096, 4096, torch.int16, torch.int16, True, "mma"),     # int16 w
+    (8, 4096, 4096, torch.int8, torch.int8, False, "mma"),      # base
+    (8, 70, 4096, torch.int8, torch.int8, True, "mma"),         # x rows
+    (8, 4100, 4096, torch.int16, torch.int8, True, "mma"),      # 8200 B
+    (8, 4096, 50, torch.int8, torch.int8, True, "mma"),         # w rows
+    (8, 0, 64, torch.int8, torch.int8, True, "mma"),            # K = 0
+    (4, 8, 16, torch.int16, torch.int8, True, "mma"),
+    (24, 8, 16, torch.int16, torch.int8, True, "wgmma"),
+])
+def test_route_sends_each_call_to_its_body(M, K, N, dt_x, dt_w, aligned,
+                                           body):
+    """The wgmma body takes M 17-64 of the calls it can serve: the rows the
+    mma.sync body pads to its 64-row tile; everything else stays there."""
+    assert ops.route(M, K, N, dt_x, dt_w, aligned) == body
+    assert ops.wgmma_takes(M, K, N, dt_x, dt_w, aligned) == (
+        1 <= M <= ops.WG_MAX_M and K >= 1 and aligned and dt_w == torch.int8
+        and K * dt_x.itemsize % 16 == 0 and N % 16 == 0)
+    if body == "wgmma":
+        assert ops.wgmma_takes(M, K, N, dt_x, dt_w, aligned)
+
+
+@pytest.mark.parametrize("M", [1, 4, 8, 16, 17, 32, 64])
+def test_route_follows_the_crossover_row_count(M, monkeypatch):
+    """WG_MIN_M moves every call the wgmma body takes between the bodies:
+    at 1 all of them go to it, above WG_MAX_M none does."""
+    args = (M, 11008, 4096, torch.int16, torch.int8)
+    assert ops.route(*args) == ("wgmma" if M > ops.SMALL_M else "mma")
+    monkeypatch.setattr(ops, "WG_MIN_M", 1)
+    assert ops.route(*args) == "wgmma"
+    monkeypatch.setattr(ops, "WG_MIN_M", ops.WG_MAX_M + 1)
+    assert ops.route(*args) == "mma"
+
+
+def test_workspace_cache_is_bounded_and_keeps_the_recent(monkeypatch):
+    """One zeroed workspace per (device, stream), reused while it is kept;
+    past _MAX_WORKSPACES streams the least recently used is dropped."""
+    monkeypatch.setattr(ops, "_workspaces", type(ops._workspaces)())
+    dev = torch.device("cpu")
+    first = ops._workspace(dev, 1, 1)
+    assert first.numel() == ops.WG_SLOT + 1 and not first.any()
+    for stream in range(2, ops._MAX_WORKSPACES + 1):
+        ops._workspace(dev, stream, 1)
+    assert ops._workspace(dev, 1, 1) is first       # used last: kept
+    ops._workspace(dev, 100, 1)                     # drops stream 2
+    assert len(ops._workspaces) == ops._MAX_WORKSPACES
+    assert (None, 2) not in ops._workspaces
+    assert ops._workspace(dev, 1, 1) is first
